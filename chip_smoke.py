@@ -9,14 +9,20 @@ script exits non-zero without printing a result):
      process per source, all started together) and print the build time;
   2. kernel check: the Cholesky-inverse kernel against its plain PyTorch
      version on the card at the main path's level-1 shapes (SPD matrices
-     from a seed), on the unaligned (3, 200, 70) batch of
-     tests/test_blocked_chol.py against float64 truth, and on an
-     indefinite block whose status flag must be set; times the kernel,
-     the plain version and torch.linalg.cholesky + solve_triangular;
+     from a seed; its float64 residual max|Linv N Linvᵀ − I| at most
+     1e-4 and at most twice the plain version's), on the unaligned
+     (3, 200, 70) batch of tests/test_blocked_chol.py against float64
+     truth, and on an indefinite block whose status flag must be set;
+     times the kernel, the plain version and torch.linalg.cholesky +
+     solve_triangular, and profiles one call of the kernel with
+     torch.profiler: time and grid launches of each __global__ function;
   3. main path: the 10,000-station mixed network (100 x 100, 34 x 34
      tiles, 9 blocks, seed 0) through adjust_tpu_blocked on the card,
      kernel launch counts zeroed just before and read just after; it
      must converge with the last solve at <= 1e-9 relative residual;
+     then the same adjustment again under torch.profiler: the device
+     time and busy share of the last (warm) iteration and the split of
+     its factor phase (kernel, reduce_from_linv's products, junction);
   4. card against CPU: a 24 x 24 network (12 x 12 tiles) through the same
      entry point on "cuda" and on "cpu", held to xyz 1e-7 m, sigma0 1e-9
      and station covariances 1e-9 relative;
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +54,7 @@ from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12          # non-tensor float32
+PEAK_TF32_FLOPS = 495e12         # tensor cores, TF32
 PEAK_BYTES = 3.35e12             # HBM3
 
 KERNEL_REL_TOL = 2e-5    # kernel vs plain, max|dLinv| / max|Linv|: both
@@ -84,6 +92,47 @@ def _time_ms(fn, reps: int = 3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _global_functions(source: str) -> list:
+    """Names of the __global__ functions of a csrc/ source."""
+    text = (kernels.CSRC / source).read_text()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)", text)
+
+
+def _kernel_split(prof, names) -> dict:
+    """{function: {"ms": total device ms, "launches": grids}} of the
+    device kernels in a profile whose name holds one of `names`."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for nm in names:
+            if re.search(rf"\b{nm}\b", e.name):
+                d = out.setdefault(nm, {"ms": 0.0, "launches": 0})
+                d["ms"] += e.time_range.elapsed_us() / 1e3
+                d["launches"] += 1
+                break
+    return out
+
+
+def profile_kernel(fn, source: str) -> dict:
+    """One call of `fn` (warm) under torch.profiler on the card: total
+    time and grid launches of every __global__ function of `source`."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = _kernel_split(prof, _global_functions(source))
+    _check(bool(split), f"the profile shows the kernels of {source}")
+    _say("kernel profile (one call): " + "  ".join(
+        f"{k}: {v['ms']:.3f} ms / {v['launches']} grids"
+        for k, v in split.items()))
+    return split
+
+
 def _main_path_shapes(rows, cols, tile):
     """(B, ni) of the level-1 blocks the main path factors."""
     net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
@@ -112,15 +161,22 @@ def phase_kernel(B, n):
     torch.cuda.synchronize()
     abs_err = float((Lk - Lp).abs().max())
     rel = abs_err / float(Lp.abs().max())
-    Lk64 = Lk.to(torch.float64)
-    resid = float((Lk64 @ N64 @ Lk64.transpose(1, 2) - eye64).abs().max())
-    del Lk64, N64
+
+    def residual(L):
+        L64 = L.to(torch.float64)
+        return float((L64 @ N64 @ L64.transpose(1, 2) - eye64).abs().max())
+
+    resid, resid_plain = residual(Lk), residual(Lp)
+    del N64
     _say(f"kernel ({B}, {n}): max|kernel-plain| {abs_err:.3e} "
          f"(rel {rel:.3e} <= {KERNEL_REL_TOL:g}), "
-         f"max|Linv N Linv^T - I| {resid:.3e} (<= {RESID_TOL:g}), "
+         f"max|Linv N Linv^T - I| {resid:.3e} (<= {RESID_TOL:g} and <= "
+         f"2 x the plain version's {resid_plain:.3e}), "
          f"status {int(sk.sum())}/{int(sp.sum())}")
     _check(rel <= KERNEL_REL_TOL, f"kernel vs plain rel {rel}")
     _check(resid <= RESID_TOL, f"kernel residual {resid}")
+    _check(resid <= 2.0 * resid_plain,
+           f"kernel residual {resid} against the plain {resid_plain}")
     _check(int(sk.sum()) == 0 and int(sp.sum()) == 0, "SPD status clean")
 
     ms = _time_ms(lambda: batched_cholesky_inverse(N))
@@ -132,9 +188,14 @@ def phase_kernel(B, n):
     nbytes = 2.0 * B * n * n * 4             # read Nii, write Linv
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    # the tile products as 3xTF32 tensor-core products: three TF32
+    # products for each float32 one
+    tc_bound_ms = 1e3 * max(3.0 * flops / PEAK_TF32_FLOPS, t_bytes)
     _say(f"kernel ms {ms:.3f}  plain ms {plain_ms:.3f}  library ms "
-         f"{library_ms:.3f}  bound ms {bound_ms:.3f} "
-         f"({flops:.3e} flop, {nbytes:.3e} bytes)")
+         f"{library_ms:.3f}  bound ms {bound_ms:.3f} (3xTF32 "
+         f"{tc_bound_ms:.3f}) ({flops:.3e} flop, {nbytes:.3e} bytes)")
+    split = profile_kernel(lambda: batched_cholesky_inverse(N),
+                           "chol_inv.cu")
 
     # the unaligned batch of tests/test_blocked_chol.py vs float64 truth
     rng = np.random.default_rng(3)
@@ -163,7 +224,8 @@ def phase_kernel(B, n):
     _check(st == [0, 1, 0], f"indefinite status {st}")
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tc_bound_ms": tc_bound_ms, "split": split}
 
 
 def phase_main(rows, cols, tile):
@@ -212,6 +274,83 @@ def phase_main(rows, cols, tile):
     return launches
 
 
+FACTOR_PARTS = ("dta.chol_inv", "dta.reduce_from_linv", "dta.junction")
+
+
+def phase_trace(rows, cols, tile):
+    """The same adjustment again under torch.profiler: the device time
+    of the last Gauss-Newton iteration (the "dta.iteration" range, rhs
+    through update), its busy share, and the split of its factor phase
+    into the kernel, the four float32 products of reduce_from_linv and
+    the junction inverse."""
+    from torch.profiler import ProfilerActivity, profile
+    os.environ["DTA_PROFILE"] = "1"
+    net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
+                                       block_cols=tile, seed=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                                 device="cuda")
+        torch.cuda.synchronize()
+    del os.environ["DTA_PROFILE"]
+    from torch.autograd import DeviceType
+    ev = prof.events()
+    # host ranges; the profiler mirrors each on the device timeline as
+    # well, under the same name
+    host = [e for e in ev if e.device_type == DeviceType.CPU]
+    its = sorted((e for e in host if e.name == "dta.iteration"),
+                 key=lambda e: e.time_range.start)
+    _check(len(its) == res.iterations,
+           f"one trace range per iteration ({len(its)} ranges, "
+           f"{res.iterations} iterations)")
+    last = its[-1]
+    t0, t1 = last.time_range.start, last.time_range.end
+    # a device event belongs to the host range that launched it: the
+    # runtime call with its correlation id (the kernels of csrc/ are
+    # launched through ctypes, outside any torch operator)
+    launch = {e.id: e.time_range.start for e in host
+              if e.name.startswith("cu")}
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("dta.")]
+    at = [(launch.get(e.id), e.time_range.start, e.time_range.end)
+          for e in dev]
+    matched = sum(t is not None for t, _, _ in at)
+    _say(f"trace: {len(at)} device events, {matched} matched to their "
+         f"launch (the others are placed by their device start)")
+    at = [(s if t is None else t, s, e) for t, s, e in at]
+
+    def device_ms(r):
+        """Device time of the events launched in host range r: the union
+        of their intervals (the kernel's streams run side by side)."""
+        a, b = r.time_range.start, r.time_range.end
+        busy, end = 0.0, float("-inf")
+        for s, e in sorted((s, e) for t, s, e in at if a <= t <= b):
+            busy += max(0.0, e - max(s, end))
+            end = max(end, e)
+        return busy / 1e3
+
+    def inside(name):
+        return [e for e in host if e.name == name
+                and t0 <= e.time_range.start and e.time_range.end <= t1]
+
+    wall_ms = (t1 - t0) / 1e3
+    busy_ms = device_ms(last)
+    factor = inside("dta.factor")
+    _check(len(factor) == 1, "one factor range in the last iteration")
+    out = {"iteration_ms": wall_ms, "device_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms,
+           "factor_ms": factor[0].time_range.elapsed_us() / 1e3,
+           "factor_device_ms": device_ms(factor[0])}
+    for name in FACTOR_PARTS:
+        out[name] = sum(device_ms(e) for e in inside(name))
+    out["factor_other_device_ms"] = out["factor_device_ms"] - sum(
+        out[name] for name in FACTOR_PARTS)
+    _say("warm iteration trace: " + json.dumps(out))
+    _check(busy_ms > 0 and out["dta.chol_inv"] > 0,
+           "the trace shows device time")
+    return out
+
+
 def phase_card_vs_cpu():
     out = {}
     for dev in ("cuda", "cpu"):
@@ -255,6 +394,10 @@ def main() -> int:
     t = time.perf_counter()
     launches = phase_main(rows, cols, tile)
     _say(f"phase main: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    phase_trace(rows, cols, tile)
+    _say(f"phase trace: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     phase_card_vs_cpu()

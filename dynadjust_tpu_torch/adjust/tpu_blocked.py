@@ -31,6 +31,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..network.data import NetworkData
 from ..segment import Segmentation, segment_network
@@ -191,6 +192,9 @@ def adjust_tpu_blocked(net: NetworkData,
     for _ in range(opts.max_iterations):
         iteration += 1
         _t_iter = time.perf_counter()
+        # trace range of what the log's "elapsed" covers (rhs .. update)
+        _iter_range = record_function("dta.iteration")
+        _iter_range.__enter__()
         _t = time.perf_counter()
         prev_bs = bs
         # ONE float64 value upload (scalar tiles only; GPS tiles are
@@ -219,13 +223,14 @@ def adjust_tpu_blocked(net: NetworkData,
         # with constraints eliminated the scaled systems condition at
         # ~1e4-1e6: f32 factorization + f64 residual refinement reaches
         # f64-level solutions
-        if factors is None:
-            factors = DeviceSchurFactors(bs)
-        elif refactor:
-            factors.update(bs)
-        else:
-            factors.bs = bs
-        _sync()
+        with record_function("dta.factor"):
+            if factors is None:
+                factors = DeviceSchurFactors(bs)
+            elif refactor:
+                factors.update(bs)
+            else:
+                factors.bs = bs
+            _sync()
         if prof is not None:
             prof["factor"] += time.perf_counter() - _t
             _t = time.perf_counter()
@@ -256,6 +261,7 @@ def adjust_tpu_blocked(net: NetworkData,
                  "station": net.names[max_stn], "block": max_blk,
                  "enu": [float(v) for v in np.ravel(_enu)],
                  "elapsed": time.perf_counter() - _t_iter}
+        _iter_range.__exit__(None, None, None)
         entry.update(solve_ev)      # solve_rel / solve_rounds
         it_log.append(entry)
 

@@ -3,21 +3,23 @@
 Port of the Pallas TPU kernel ``dynadjust_tpu/ops/pallas_schur.py``
 (``_chol_inv_kernel`` via ``_chol_inverse_jit``; wrappers
 ``batched_cholesky_inverse`` and ``fused_block_reduce``).  For a (B, n, n)
-float32 SPD batch it computes Linv = chol(Nii)^-1 by a right-looking
-blocked Cholesky over 64-wide tiles followed by block-row forward
-substitution; ``fused_block_reduce`` then forms the explicit inverse
-Ainv = Linvᵀ Linv (the reference's dpotrf+dpotri,
-dnamatrix_contiguous.cpp:963-1006), W = Linv Nij, Y = Linvᵀ W and the
-Schur piece S = Njj − Wᵀ W as plain float32 matmuls, as the JAX package
-forms them outside its kernel.
+float32 SPD batch it computes Linv = chol(Nii)^-1; ``fused_block_reduce``
+then forms the explicit inverse Ainv = Linvᵀ Linv (the reference's
+dpotrf+dpotri, dnamatrix_contiguous.cpp:963-1006), W = Linv Nij,
+Y = Linvᵀ W and the Schur piece S = Njj − Wᵀ W as plain float32 matmuls,
+as the JAX package forms them outside its kernel.
 
 On a CUDA tensor the factorization is the hand-written kernel of
-``csrc/chol_inv.cu`` (see its header for the design and what bounds it);
-on a CPU tensor it is ``cholesky_inverse_plain``, the same tiled
-arithmetic in PyTorch operations.  Any other device raises.  The padded
-ragged edge carries an identity diagonal (pallas_schur.py:157-160), so n
-need not be a tile multiple, and unlike the TPU kernel (``MAX_NI = 896``)
-there is no size cap: the tiles live in device memory.
+``csrc/chol_inv.cu`` (128-wide steps, 3xTF32 tensor-core tile products,
+a recursive triangular inverse; see its header for the design and what
+bounds it); on a CPU tensor it is ``cholesky_inverse_plain``: a
+right-looking blocked Cholesky over 64-wide tiles followed by block-row
+forward substitution, in PyTorch operations.  Any other device raises.
+Each route pads the ragged edge to a multiple of its own tile (the
+kernel reports its tile through ``dta_chol_inv_tile``) with an identity
+diagonal (pallas_schur.py:157-160), so n need not be a tile multiple,
+and unlike the TPU kernel (``MAX_NI = 896``) there is no size cap: the
+tiles live in device memory.
 
 Both versions also return one int32 status per block, set when a pivot is
 not positive or is NaN — the signal ``blocked_chol.block_reduce`` uses
@@ -29,25 +31,29 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
-TILE = 64           # must equal csrc/chol_inv.cu's T
+TILE = 64           # the plain version's tile; the kernel reports its own
 
 
 def _pad_identity(Nii: torch.Tensor, t: int = TILE) -> torch.Tensor:
     """Fresh contiguous float32 copy padded to a multiple of t, identity on
-    the padded diagonal (the kernel overwrites its input)."""
+    the padded rows (both versions overwrite it).  The padded columns of
+    the first n0 rows are left unset: both versions read only the lower
+    triangle."""
     B, n0 = Nii.shape[0], Nii.shape[1]
     n = -(-n0 // t) * t
-    A = torch.zeros((B, n, n), dtype=torch.float32, device=Nii.device)
+    A = torch.empty((B, n, n), dtype=torch.float32, device=Nii.device)
     A[:, :n0, :n0] = Nii
     if n != n0:
+        A[:, n0:, :] = 0.0
         A.diagonal(dim1=1, dim2=2)[:, n0:] = 1.0
     return A
 
 
 def _factor_tile_plain(D: torch.Tensor):
     """(L, L^-1, bad) of a batch of (T, T) SPD tiles: column-by-column
-    Cholesky, then forward substitution — the kernel's diag_factor."""
+    Cholesky, then forward substitution."""
     D = D.clone()
     B, T = D.shape[0], D.shape[1]
     bad = torch.zeros(B, dtype=torch.bool, device=D.device)
@@ -103,12 +109,10 @@ def _launch(Nii: torch.Tensor):
                                  ctypes.c_void_p]
     lib.dta_chol_inv.restype = ctypes.c_int
     lib.dta_chol_inv_tile.restype = ctypes.c_int
-    if lib.dta_chol_inv_tile() != TILE:
-        raise RuntimeError("csrc/chol_inv.cu tile differs from TILE")
     B, n0 = Nii.shape[0], Nii.shape[1]
     with torch.cuda.device(Nii.device):
-        A = _pad_identity(Nii)
-        Linv = torch.zeros_like(A)
+        A = _pad_identity(Nii, lib.dta_chol_inv_tile())
+        Linv = torch.empty_like(A)          # the kernel writes all of it
         status = torch.zeros(B, dtype=torch.int32, device=A.device)
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.dta_chol_inv(A.data_ptr(), Linv.data_ptr(),
@@ -153,5 +157,7 @@ def fused_block_reduce(Nii, Nij, Njj):
         Ainv = Nii^-1;  Y = Ainv Nij;  S_b = Njj − Nijᵀ Y
 
     Returns (Ainv, Y, S, status); status as in batched_cholesky_inverse."""
-    Linv, status = batched_cholesky_inverse(Nii.to(torch.float32))
-    return (*reduce_from_linv(Linv, Nij, Njj), status)
+    with record_function("dta.chol_inv"):
+        Linv, status = batched_cholesky_inverse(Nii.to(torch.float32))
+    with record_function("dta.reduce_from_linv"):
+        return (*reduce_from_linv(Linv, Nij, Njj), status)

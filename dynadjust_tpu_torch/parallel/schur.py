@@ -32,6 +32,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 @dataclass
@@ -213,9 +214,10 @@ def _schur_factor_inv(Nii, Nij, Njj, jmap, jmask, nj_total):
     Nii_s, Nij_s, Njj_s, _, _, di, dj, djg = _unity_scale(
         Nii, Nij, Njj, zero_b, zero_j, jmap, jmask, nj_total)
     Ainv, Y, S_b = block_reduce(Nii_s, Nij_s, Njj_s)
-    S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
-    S = _scatter_junction_matrix(S_b, jmap, nj_total)
-    Sinv = spd_inverse_rec_safe(S[None])[0]
+    with record_function("dta.junction"):
+        S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
+        S = _scatter_junction_matrix(S_b, jmap, nj_total)
+        Sinv = spd_inverse_rec_safe(S[None])[0]
     return Ainv, Y, Sinv, di, dj, djg, Nij_s
 
 

@@ -12,7 +12,7 @@ import torch
 
 from dynadjust_tpu_torch.adjust import AdjustmentOptions
 from dynadjust_tpu_torch.adjust.tpu_blocked import adjust_tpu_blocked
-from dynadjust_tpu_torch.ops.chol_inv import (TILE, batched_cholesky_inverse,
+from dynadjust_tpu_torch.ops.chol_inv import (batched_cholesky_inverse,
                                               cholesky_inverse_plain,
                                               fused_block_reduce)
 from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
@@ -33,20 +33,45 @@ def _spd(B, n, seed):
     return G.transpose(0, 2, 1) @ G / (2 * n) + 0.5 * np.eye(n)
 
 
+# sizes around the plain version's 64-wide tiles and the kernel's
+# 128-wide steps, and one at a size where the inverse recursion is deep
+SIZES = [(3, n) for n in (1, 63, 64, 65, 127, 128, 129, 700)] + [(2, 2048)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, TILE - 1, TILE, 2 * TILE + 3, 700])
-def test_kernel_matches_plain_version(cuda, n):
+@pytest.mark.parametrize("B, n", SIZES)
+def test_kernel_matches_plain_version(cuda, B, n):
     """Kernel and plain version on the same card, same float32 inputs:
-    they differ only in summation order (2e-5 of max|Linv|)."""
-    N = torch.tensor(_spd(3, n, n), dtype=torch.float32, device=cuda)
+    the kernel's tile products are 3xTF32 and the plain version's full
+    float32, and they sum in other orders (2e-5 of max|Linv|)."""
+    N = torch.tensor(_spd(B, n, n), dtype=torch.float32, device=cuda)
     before = batched_cholesky_inverse.launches
     Lk, sk = batched_cholesky_inverse(N)
     Lp, sp = cholesky_inverse_plain(N)
     torch.cuda.synchronize()
     assert batched_cholesky_inverse.launches == before + 1
     assert (Lk - Lp).abs().max() <= 2e-5 * Lp.abs().max()
-    assert sk.tolist() == sp.tolist() == [0, 0, 0]
+    assert sk.tolist() == sp.tolist() == [0] * B
     assert torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n", [(3, 700), (2, 2048)])
+def test_kernel_residual_no_worse_than_plain(cuda, B, n):
+    """The 3xTF32 tile products keep float32 accuracy: the float64
+    residual max|Linv N Linvᵀ − I| of the kernel is at most twice that
+    of the plain version (full float32 products) on the same input."""
+    N = torch.tensor(_spd(B, n, n), dtype=torch.float32, device=cuda)
+    N64 = N.double()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+
+    def residual(L):
+        L = L.double()
+        return float((L @ N64 @ L.transpose(1, 2) - eye).abs().max())
+
+    kernel = residual(batched_cholesky_inverse(N)[0])
+    plain = residual(cholesky_inverse_plain(N)[0])
+    assert kernel <= 2.0 * plain, (kernel, plain)
 
 
 @pytest.mark.gpu
