@@ -16,17 +16,35 @@ script exits non-zero without printing a result):
      times the kernel, the plain version and torch.linalg.cholesky +
      solve_triangular, and profiles one call of the kernel with
      torch.profiler: time and grid launches of each __global__ function;
-  3. main path: the 10,000-station mixed network (100 x 100, 34 x 34
-     tiles, 9 blocks, seed 0) through adjust_tpu_blocked on the card,
-     kernel launch counts zeroed just before and read just after; it
-     must converge with the last solve at <= 1e-9 relative residual;
+  3. two-level path: the 10,000-station mixed network (100 x 100,
+     34 x 34 tiles, 9 blocks, seed 0) through adjust_tpu_blocked on the
+     card, kernel launch counts zeroed just before and read just after;
+     it must converge with the last solve at <= 1e-9 relative residual;
      then the same adjustment again under torch.profiler: the device
      time and busy share of the last (warm) iteration and the split of
      its factor phase (kernel, reduce_from_linv's products, junction);
   4. card against CPU: a 24 x 24 network (12 x 12 tiles) through the same
      entry point on "cuda" and on "cpu", held to xyz 1e-7 m, sigma0 1e-9
      and station covariances 1e-9 relative;
-  5. one {"kernels": [...]} line, the card line, and the result line.
+  5. kernel at the level-2 shape: the Cholesky-inverse kernel against
+     its plain version at the nested path's super-block systems (4
+     super-blocks of the grid grouping below; a super-block without
+     inner-junction parameters is all identity), with the gates of
+     phase 2, and timed against the plain version and the library;
+  6. nested path: the same 10,000-station network with super_blocks=4
+     and bench.py's grid grouping (2 x 2 super-tiles), cold and then
+     warm, counts zeroed before each run and read after it; it must
+     converge in the two-level run's iteration count, with xyz within
+     1e-6 m of it, the last solve at <= 1e-9, refinement residuals
+     l1_err and l3_err < 1e-8, and the kernel launched at level 1 and at
+     level 2 in every iteration; then the nested adjustment under
+     torch.profiler: the warm iteration's device split of the factor
+     (level-1 kernel and products, level-2 kernel and products,
+     level-3 inverse);
+  7. nested card against CPU: the 24 x 24 network with super_blocks=2,
+     on the one-pass factor route and on the staged route
+     (DTA_NESTED_FUSE_BYTES=0), with the bounds of phase 4;
+  8. one {"kernels": [...]} line, the card line, and the result line.
 
 Needs one card; exits non-zero when torch.cuda.is_available() is false.
 """
@@ -50,6 +68,8 @@ from dynadjust_tpu_torch.ops import kernels
 from dynadjust_tpu_torch.ops.chol_inv import (batched_cholesky_inverse,
                                               cholesky_inverse_plain,
                                               fused_block_reduce)
+from dynadjust_tpu_torch.parallel.schur import build_nested_partition
+from dynadjust_tpu_torch.utils.synthetic import grid_super_assignment
 from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -133,8 +153,19 @@ def profile_kernel(fn, source: str) -> dict:
     return split
 
 
-def _main_path_shapes(rows, cols, tile):
-    """(B, ni) of the level-1 blocks the main path factors."""
+def _grid_grouping(rows, cols, tile, super_blocks):
+    """bench.py's grid-aware block -> super-block assignment."""
+    g = max(1, int(round(super_blocks ** 0.5)))
+    tr = (rows + tile - 1) // tile
+    tc = (cols + tile - 1) // tile
+    return grid_super_assignment(rows, cols, tile, tile,
+                                 (tr + g - 1) // g, (tc + g - 1) // g)
+
+
+def _main_path_shapes(rows, cols, tile, block_super):
+    """(B, ni) of the level-1 blocks the main path factors, and the
+    nested path's level-2 systems: (SB, ni2) and the number of real
+    inner-junction parameters of each super-block."""
     net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
                                        block_cols=tile)
 
@@ -144,17 +175,40 @@ def _main_path_shapes(rows, cols, tile):
 
     _, part = _build_partition(
         net.nstations, [_Stations(b) for b in range(seg.block_count)])
-    return seg.block_count, max(len(p[0]) for p in part)
+    B = seg.block_count
+    nj = max(len(p[2]) for p in part)
+    njg = max(int(p[2].max()) for p in part if len(p[2])) + 1
+    jmap = np.full((B, nj), njg, dtype=np.int32)
+    jmask = np.zeros((B, nj))
+    for b, p in enumerate(part):
+        jmap[b, :len(p[2])] = p[2]
+        jmask[b, :len(p[2])] = 1.0
+    npart = build_nested_partition(
+        type("Topology", (), {"jmap": jmap, "jmask": jmask,
+                              "nj_global": njg}), block_super)
+    _say(f"nested partition: {npart.SB} super-blocks of {npart.ni2} "
+         f"inner-junction slots, {npart.nsj_global} super-junction "
+         f"parameters of {njg} junction parameters")
+    return ((B, max(len(p[0]) for p in part)),
+            (npart.SB, npart.ni2, npart.i2mask.sum(axis=1).astype(int)))
 
 
-def phase_kernel(B, n):
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(0)
-    G = torch.randn(B, 2 * n, n, device=dev, generator=g,
+def _spd(B, n, seed=0):
+    """(B, n, n) float64 SPD matrices on the card, from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn(B, 2 * n, n, device="cuda", generator=g,
                     dtype=torch.float64)
+    eye64 = torch.eye(n, device="cuda", dtype=torch.float64)
+    return G.transpose(1, 2) @ G / (2 * n) + 0.5 * eye64
+
+
+def _hold_kernel(N64):
+    """The kernel against its plain version on the float32 copy of the
+    SPD batch N64, with the gates of phase 2, then timed against the
+    plain version and the library pair; the bound of its work."""
+    dev = "cuda"
+    B, n = N64.shape[0], N64.shape[1]
     eye64 = torch.eye(n, device=dev, dtype=torch.float64)
-    N64 = G.transpose(1, 2) @ G / (2 * n) + 0.5 * eye64
-    del G
     N = N64.to(torch.float32)
     Lk, sk = batched_cholesky_inverse(N)
     Lp, sp = cholesky_inverse_plain(N)
@@ -179,11 +233,12 @@ def phase_kernel(B, n):
            f"kernel residual {resid} against the plain {resid_plain}")
     _check(int(sk.sum()) == 0 and int(sp.sum()) == 0, "SPD status clean")
 
-    ms = _time_ms(lambda: batched_cholesky_inverse(N))
+    reps = 3 if n > 1024 else 20         # small calls: more repeats
+    ms = _time_ms(lambda: batched_cholesky_inverse(N), reps)
     plain_ms = _time_ms(lambda: cholesky_inverse_plain(N), reps=1)
     eye32 = torch.eye(n, device=dev).expand(B, n, n)
     library_ms = _time_ms(lambda: torch.linalg.solve_triangular(
-        torch.linalg.cholesky(N), eye32, upper=False))
+        torch.linalg.cholesky(N), eye32, upper=False), reps)
     flops = B * 2.0 * n ** 3 / 3.0           # chol n^3/3 + tri-inverse n^3/3
     nbytes = 2.0 * B * n * n * 4             # read Nii, write Linv
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
@@ -194,6 +249,15 @@ def phase_kernel(B, n):
     _say(f"kernel ms {ms:.3f}  plain ms {plain_ms:.3f}  library ms "
          f"{library_ms:.3f}  bound ms {bound_ms:.3f} (3xTF32 "
          f"{tc_bound_ms:.3f}) ({flops:.3e} flop, {nbytes:.3e} bytes)")
+    return N, {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tc_bound_ms": tc_bound_ms}
+
+
+def phase_kernel(B, n):
+    dev = "cuda"
+    N, held = _hold_kernel(_spd(B, n))
     split = profile_kernel(lambda: batched_cholesky_inverse(N),
                            "chol_inv.cu")
 
@@ -222,26 +286,44 @@ def phase_kernel(B, n):
     st = batched_cholesky_inverse(bad)[1].tolist()
     _say(f"indefinite block 1: status {st}")
     _check(st == [0, 1, 0], f"indefinite status {st}")
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tc_bound_ms": tc_bound_ms, "split": split}
+    return {**held, "split": split}
 
 
-def phase_main(rows, cols, tile):
+def phase_kernel_level2(SB, ni2, n_real):
+    """The kernel at the nested path's level-2 shape: super-block k holds
+    an SPD system on its n_real[k] inner-junction slots and identity on
+    the rest (all identity where n_real[k] is 0), as the factor's
+    identity padding makes it."""
+    N64 = torch.eye(ni2, dtype=torch.float64, device="cuda").repeat(
+        SB, 1, 1)
+    for k, n in enumerate(n_real):
+        if n:
+            N64[k, :n, :n] = _spd(1, int(n), seed=k + 1)[0]
+    _say(f"level-2 systems ({SB}, {ni2}): real inner-junction "
+         f"parameters {list(map(int, n_real))}")
+    _check(min(n_real) == 0, "one super-block is all identity")
+    return _hold_kernel(N64)[1]
+
+
+def phase_main(rows, cols, tile, label="two-level", **kw):
+    """One adjustment of the 10k network through the entry point, counts
+    zeroed just before and read just after: (result, launches, launches
+    per (B, n))."""
     os.environ["DTA_PROFILE"] = "1"
     net, seg, truth = synthetic_mixed_network(rows, cols, block_rows=tile,
                                               block_cols=tile, seed=0,
                                               return_truth=True)
-    _say(f"main path: {net.nstations} stations, {len(net.measurements)} "
-         f"records, {seg.block_count} blocks")
+    _say(f"{label} path: {net.nstations} stations, "
+         f"{len(net.measurements)} records, {seg.block_count} blocks")
     batched_cholesky_inverse.launches = 0
+    batched_cholesky_inverse.shapes = {}
     t0 = time.perf_counter()
     res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                             device="cuda")
+                             device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
     del os.environ["DTA_PROFILE"]
     log = res.iteration_log
     err = float(np.abs(res.xyz - truth).max())
@@ -261,7 +343,8 @@ def phase_main(rows, cols, tile):
     _say(f"  refine evidence: {res.refine_evidence}")
     _say(f"first iteration {log[0]['elapsed']:.3f} s, warm (last) "
          f"iteration {log[-1]['elapsed']:.3f} s; max|xyz - truth| "
-         f"{err:.4f} m; chol_inv launches {launches}")
+         f"{err:.4f} m; chol_inv launches {launches} by (B, n) "
+         f"{shapes}")
     _check(res.status == "Converged", f"status {res.status}")
     _check(log[-1]["solve_rel"] <= 1e-9,
            f"last solve_rel {log[-1]['solve_rel']}")
@@ -270,19 +353,65 @@ def phase_main(rows, cols, tile):
     err0 = float(np.abs(res.initial_xyz - truth).max())
     _check(err < 0.5 * err0, f"adjusted-vs-truth {err} m against the "
            f"initial {err0} m")
-    _check(launches > 0, "chol_inv launched on the main path")
-    return launches
+    _check(launches > 0, f"chol_inv launched on the {label} path")
+    return res, launches, shapes
 
 
-FACTOR_PARTS = ("dta.chol_inv", "dta.reduce_from_linv", "dta.junction")
+def phase_nested(rows, cols, tile, super_blocks, block_super, flat,
+                 shapes_l1, shape_l2):
+    """The nested path cold, then warm; each held to the two-level run
+    `flat` of the same network."""
+    runs = []
+    for run in ("cold", "warm"):
+        t = time.perf_counter()
+        res, launches, shapes = phase_main(
+            rows, cols, tile, label=f"nested ({run})",
+            super_blocks=super_blocks, block_super=block_super)
+        _say(f"phase nested {run}: {time.perf_counter() - t:.2f} s")
+        dx = float(np.abs(res.xyz - flat.xyz).max())
+        ev = res.refine_evidence
+        _say(f"nested {run}: {res.iterations} iterations (two-level "
+             f"{flat.iterations}), max|xyz - two-level xyz| {dx:.3e} m "
+             f"(<= 1e-6)")
+        _check(res.iterations == flat.iterations,
+               "nested iterations equal the two-level run's")
+        _check(dx <= 1e-6, f"nested xyz vs two-level {dx}")
+        _check(ev["l1_err"] < 1e-8 and ev["l3_err"] < 1e-8,
+               f"nested refinement residuals {ev}")
+        for shp in (shapes_l1, shape_l2):
+            _check(shapes.get(shp, 0) == res.iterations,
+                   f"the kernel ran at {shp} once per iteration "
+                   f"({shapes})")
+        runs.append(launches)
+    return runs
 
 
-def phase_trace(rows, cols, tile):
+# (key, trace range, enclosing range or None, part of the split): the
+# split's parts add up to the factor's device time less the rest
+FACTOR_PARTS = {
+    "flat": [("chol_inv", "dta.chol_inv", None, True),
+             ("reduce_from_linv", "dta.reduce_from_linv", None, True),
+             ("junction", "dta.junction", None, True)],
+    "nested": [("level1.chol_inv", "dta.chol_inv", "dta.level1", True),
+               ("level1.reduce_from_linv", "dta.reduce_from_linv",
+                "dta.level1", True),
+               ("level2.chol_inv", "dta.chol_inv", "dta.level2", True),
+               ("level2.reduce_from_linv", "dta.reduce_from_linv",
+                "dta.level2", True),
+               ("level3.inverse", "dta.level3", None, True),
+               ("level1", "dta.level1", None, False),
+               ("level2", "dta.level2", None, False)]}
+
+
+def phase_trace(rows, cols, tile, **kw):
     """The same adjustment again under torch.profiler: the device time
     of the last Gauss-Newton iteration (the "dta.iteration" range, rhs
-    through update), its busy share, and the split of its factor phase
-    into the kernel, the four float32 products of reduce_from_linv and
-    the junction inverse."""
+    through update), its busy share, and the split of its factor phase:
+    two-level into the kernel, the four float32 products of
+    reduce_from_linv and the junction inverse; nested into the level-1
+    and level-2 kernels and products and the level-3 inverse (the
+    "level1"/"level2" entries are the whole of each level, assembly and
+    scaling included)."""
     from torch.profiler import ProfilerActivity, profile
     os.environ["DTA_PROFILE"] = "1"
     net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
@@ -290,7 +419,7 @@ def phase_trace(rows, cols, tile):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                                 device="cuda")
+                                 device="cuda", **kw)
         torch.cuda.synchronize()
     del os.environ["DTA_PROFILE"]
     from torch.autograd import DeviceType
@@ -329,9 +458,10 @@ def phase_trace(rows, cols, tile):
             end = max(end, e)
         return busy / 1e3
 
-    def inside(name):
+    def inside(name, r=last):
+        a, b = r.time_range.start, r.time_range.end
         return [e for e in host if e.name == name
-                and t0 <= e.time_range.start and e.time_range.end <= t1]
+                and a <= e.time_range.start and e.time_range.end <= b]
 
     wall_ms = (t1 - t0) / 1e3
     busy_ms = device_ms(last)
@@ -341,23 +471,27 @@ def phase_trace(rows, cols, tile):
            "busy_share": busy_ms / wall_ms,
            "factor_ms": factor[0].time_range.elapsed_us() / 1e3,
            "factor_device_ms": device_ms(factor[0])}
-    for name in FACTOR_PARTS:
-        out[name] = sum(device_ms(e) for e in inside(name))
+    parts = FACTOR_PARTS["nested" if kw.get("super_blocks") else "flat"]
+    for key, name, parent, _ in parts:
+        within = inside(parent, factor[0]) if parent else factor
+        out[key] = sum(device_ms(e) for r in within
+                       for e in inside(name, r))
     out["factor_other_device_ms"] = out["factor_device_ms"] - sum(
-        out[name] for name in FACTOR_PARTS)
+        out[key] for key, _, _, leaf in parts if leaf)
     _say("warm iteration trace: " + json.dumps(out))
-    _check(busy_ms > 0 and out["dta.chol_inv"] > 0,
-           "the trace shows device time")
+    _check(busy_ms > 0 and all(out[key] > 0 for key, *_ in parts
+                               if key.endswith("chol_inv")),
+           "the trace shows the kernel's device time")
     return out
 
 
-def phase_card_vs_cpu():
+def phase_card_vs_cpu(label="two-level", **kw):
     out = {}
     for dev in ("cuda", "cpu"):
         net, seg = synthetic_mixed_network(24, 24, block_rows=12,
                                            block_cols=12)
         out[dev] = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                                      device=dev)
+                                      device=dev, **kw)
     g, c = out["cuda"], out["cpu"]
     dx = float(np.abs(g.xyz - c.xyz).max())
     ds = abs(g.sigma_zero - c.sigma_zero)
@@ -365,7 +499,8 @@ def phase_card_vs_cpu():
                / np.abs(c.cov_stn).max())
     _say(f"refine evidence cuda {g.refine_evidence}, cpu "
          f"{c.refine_evidence}")
-    _say(f"24x24 cuda vs cpu: xyz {dx:.3e} (<= 1e-7), sigma0 {ds:.3e} "
+    _say(f"24x24 {label} cuda vs cpu: xyz {dx:.3e} (<= 1e-7), sigma0 "
+         f"{ds:.3e} "
          f"(<= 1e-9), cov_stn rel {dc:.3e} (<= 1e-9); iterations "
          f"{g.iterations}/{c.iterations}")
     _check(g.status == c.status == "Converged", "both converged")
@@ -386,13 +521,16 @@ def main() -> int:
 
     rows = cols = 100
     tile = 34
-    B, ni = _main_path_shapes(rows, cols, tile)
+    super_blocks = 4
+    block_super = _grid_grouping(rows, cols, tile, super_blocks)
+    (B, ni), (SB, ni2, n_real) = _main_path_shapes(rows, cols, tile,
+                                                   block_super)
     t = time.perf_counter()
     kern = phase_kernel(B, ni)
     _say(f"phase kernel: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    launches = phase_main(rows, cols, tile)
+    flat, launches_flat, _ = phase_main(rows, cols, tile)
     _say(f"phase main: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
@@ -403,11 +541,37 @@ def main() -> int:
     phase_card_vs_cpu()
     _say(f"phase card-vs-cpu: {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    kern2 = phase_kernel_level2(SB, ni2, n_real)
+    _say(f"phase kernel level 2: {time.perf_counter() - t:.2f} s")
+
+    nested = dict(super_blocks=super_blocks, block_super=block_super)
+    launches_nested = phase_nested(rows, cols, tile, super_blocks,
+                                   block_super, flat, (B, ni), (SB, ni2))
+    t = time.perf_counter()
+    phase_trace(rows, cols, tile, **nested)
+    _say(f"phase nested trace: {time.perf_counter() - t:.2f} s")
+
+    for fuse in ("6e8", "0"):
+        t = time.perf_counter()
+        os.environ["DTA_NESTED_FUSE_BYTES"] = fuse
+        route = "one-pass" if fuse != "0" else "staged"
+        phase_card_vs_cpu(f"nested {route}", super_blocks=2)
+        del os.environ["DTA_NESTED_FUSE_BYTES"]
+        _say(f"phase nested {route} card-vs-cpu: "
+             f"{time.perf_counter() - t:.2f} s")
+
+    # launches: the nested path's warm run (this slice's main path);
+    # the two-level path's and the cold nested run's beside it
     _say(json.dumps({"kernels": [{
         "name": "chol_inv", "route": "cuda",
         "source": "dynadjust_tpu_torch/csrc/chol_inv.cu",
         "replaces": "dynadjust_tpu/ops/pallas_schur.py:93",
-        "launches": launches, **kern}]}))
+        "launches": launches_nested[1],
+        "launches_by_path": {"two_level": launches_flat,
+                             "nested_cold": launches_nested[0],
+                             "nested_warm": launches_nested[1]},
+        **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2}}]}))
     _say(card_line())
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

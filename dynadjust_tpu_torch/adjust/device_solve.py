@@ -20,10 +20,13 @@ Per iteration the host↔device traffic is the tile values and
 misclosures up and the corrections down.
 
 Port of the JAX package's ``adjust/device_solve.py`` (the float64
-operator branch of ``_make_operator``, ``_refined_loop``, ``_flat_prog``
-and ``DeviceRefinedSolve``).  The JAX package gates this solve on an HBM
-tier ladder; on one GPU it always applies.  Reference: the per-iteration
-Solve loop, dnaadjust.cpp:6586.
+operator branch of ``_make_operator``, ``_refined_loop``, ``_flat_prog``,
+``_nested_prog``, ``DeviceRefinedSolve`` and the unsliced
+``pool_bytes``).  The JAX package sends the solve to a host refinement
+loop when the design pool is past DTA_DEVICE_SOLVE_BYTES or
+DTA_DEVICE_SOLVE=0 is set; that loop is not part of this package, so
+``check_device_solve`` raises there instead.  Reference: the
+per-iteration Solve loop, dnaadjust.cpp:6586.
 """
 
 from __future__ import annotations
@@ -134,6 +137,48 @@ def _flat_prog(dims, policy, has_proj, vals, mmc, tb, tr, tc3, wdiag, bkt,
     return _refined_loop(policy, apply_fn, matvec, bi, bj_g, imask64)
 
 
+def _nested_prog(dims, policy, has_proj, vals, mmc, tb, tr, tc3, wdiag,
+                 bkt, Pm, db, dc3, dv, jmap, jmask64, imask64, owner64,
+                 factors, gidx):
+    """The nested (three-level) refined solve: operator, rhs, refinement
+    loop over the factors' applies."""
+    rhs, matvec = _make_operator(
+        dims, has_proj, vals, mmc, wdiag, bkt, Pm, jmap, jmask64,
+        db, dc3, dv, tb, tr, tc3)
+    bi, bj_g = rhs()
+    f32 = factors.dtype
+
+    def apply_fn(ri, rj_g):
+        rjb = rj_g[jmap] * owner64
+        xi, xj = factors.apply_device(ri.to(f32), rjb.to(f32), gidx)
+        return xi.to(torch.float64), xj.to(torch.float64)
+
+    return _refined_loop(policy, apply_fn, matvec, bi, bj_g, imask64)
+
+
+def pool_bytes(da) -> float:
+    """Bytes of the refined solve's float64 design pool (B, M, P)."""
+    return float(da.Bp) * da.M * da.Pp * 8.0
+
+
+def check_device_solve(da):
+    """Raise where the JAX package would leave the device solve for its
+    host refinement loop (``want_device_solve``): DTA_DEVICE_SOLVE=0, or
+    the design pool past DTA_DEVICE_SOLVE_BYTES (8e9) unless
+    DTA_DEVICE_SOLVE=1 forces the device route."""
+    v = os.environ.get("DTA_DEVICE_SOLVE", "")
+    if v == "1":
+        return
+    budget = float(os.environ.get("DTA_DEVICE_SOLVE_BYTES", 8e9))
+    if v == "0" or pool_bytes(da) > budget:
+        why = ("DTA_DEVICE_SOLVE=0" if v == "0" else
+               f"the design pool ({pool_bytes(da):.3e} B) is past "
+               f"DTA_DEVICE_SOLVE_BYTES ({budget:.3e} B)")
+        raise NotImplementedError(
+            f"{why}: the host refinement loop is not ported yet "
+            "(ROADMAP.md, M6)")
+
+
 class DeviceRefinedSolve:
     """Per-topology constant device state of the refined solve.
 
@@ -165,6 +210,7 @@ class DeviceRefinedSolve:
             rows = rr[:, None] + np.arange(k, dtype=np.int32)
             self._buckets.append((pr(bb), pr(rows), pr(V)))
         self._pm = da.Pmat64 if da._has_proj else None
+        self._gidx = None
 
     # ------------------------------------------------------------------
     def iteration_inputs(self):
@@ -202,3 +248,26 @@ class DeviceRefinedSolve:
             Ainv, Y, Sinv, di, dj, djg, Nij_s, factors.jmask32)
         return (xi.cpu().numpy(), xj.cpu().numpy()[:self.njg],
                 {"solve_rel": float(rel), "solve_rounds": int(k)})
+
+    def solve_nested(self, factors, vals_dev, mmc_dev):
+        """Nested (3-level) refined solve.
+
+        factors: NestedSchurFactors (float32, resident).
+        Returns (xi (B, ni) float64 np, xj (njg,) float64 np,
+        {"solve_rel": float, "solve_rounds": int})."""
+        xi, xj, rel, k = _nested_prog(
+            self.dims, self.policy, self._pm is not None,
+            vals_dev, mmc_dev, *self._common_args(), factors,
+            self._gidx_for(factors))
+        return (xi.cpu().numpy(), xj.cpu().numpy()[:self.njg],
+                {"solve_rel": float(rel), "solve_rounds": int(k)})
+
+    def _gidx_for(self, factors):
+        """Junction-reconstruction gather index of the factors' partition
+        (constant per topology, uploaded once)."""
+        if self._gidx is None:
+            from ..parallel.schur import _nested_gidx
+            self._gidx = self.da._putr(
+                _nested_gidx(factors.part, factors.nsj_total),
+                torch.int64)
+        return self._gidx

@@ -13,12 +13,13 @@ Newton-refined Schur factors, and
 are computed with float64 products in block chunks, leaving only O(m)
 row bookkeeping on the host.
 
-Port of the flat (two-level) branch of the JAX package's
-``adjust/device_stats.py`` (``device_block_stats`` with
-``_fused_flat_chunk``).  The JAX package runs these products at a
-reduced mantissa-slicing tier on the TPU; the GPU has native float64.
-Parity: the chunk expresses the same 2x2 block-inverse identities as
-tpu_blocked._block_cov_from_factors.
+Port of the JAX package's ``adjust/device_stats.py``
+(``device_block_stats`` with ``_fused_flat_chunk`` for the two-level
+factors and ``_fused_nested_chunk`` for the three-level ones).  The JAX
+package runs these products at a reduced mantissa-slicing tier on the
+TPU; the GPU has native float64.  Parity: the chunks express the same
+2x2 block-inverse identities as tpu_blocked._block_cov_from_factors and
+_block_cov_from_nested.
 """
 
 from __future__ import annotations
@@ -75,6 +76,43 @@ def _flat_chunk(Ainv_c, Y_c, Sinv, di_c, djg, jmap_c, jmask_c, A64,
     return _finish_chunk(cov, A64, Pmat_c, bb, r3)
 
 
+def _nested_chunk(A2d, Y2d, Sd, Ainv_c, Y_c, di_c, djg_sel, sbb, s0, s1,
+                  jm2, m2, k0d, k1d, A64, Pmat_c, bb, r3):
+    """Nested (3-level) chunk: junction covariance Cj from the refined
+    level-2/3 inverses (the batched nested_junction_cov identities),
+    then the level-1 identities and the A-side products."""
+    Cloc = Sd[jm2[:, :, None], jm2[:, None, :]]
+    Cloc = Cloc * m2[:, :, None] * m2[:, None, :]
+    U = Y2d[sbb[:, None], s0, :]                 # (C, nj, nj2)
+    A2sel = A2d[sbb[:, None, None], s0[:, :, None], s0[:, None, :]]
+    UC = mm64(U, Cloc)
+    C00 = A2sel + mm64(UC, U.transpose(1, 2))
+    X01 = -mm64(U * m2[:, None, :], Sd[jm2[:, :, None], s1[:, None, :]])
+    C11 = Sd[s1[:, :, None], s1[:, None, :]]
+    Cj = (C00 * k0d[:, :, None] * k0d[:, None, :]
+          + X01 * k0d[:, :, None] * k1d[:, None, :]
+          + X01.transpose(1, 2) * k1d[:, :, None] * k0d[:, None, :]
+          + C11 * k1d[:, :, None] * k1d[:, None, :])
+    cov = _l1_cov(Ainv_c, Y_c, Cj, di_c, djg_sel)
+    return _finish_chunk(cov, A64, Pmat_c, bb, r3)
+
+
+def _nested_chunk_indices(factors, part, jmap_np, jmask_np, sl):
+    """Host-side index prep for one nested chunk (cheap numpy): each
+    junction slot's super-block, its level-2 inner slot (kind 0) or
+    super-junction index (kind 1), and the kind masks."""
+    g = np.minimum(jmap_np, len(part.xj_kind) - 1)
+    kind = part.xj_kind[g] * (jmask_np > 0)
+    slot = part.xj_slot[g]
+    sbb = np.asarray(part.sb_of_block[sl])
+    k0 = (kind == 0) & (jmask_np > 0)
+    k1 = (kind == 1) & (jmask_np > 0)
+    s0 = np.where(k0, np.minimum(slot, part.ni2 - 1), 0)
+    s1 = np.where(k1, np.minimum(slot, factors.nsj_total - 1), 0)
+    return (sbb, s0, s1, part.j2map[sbb], part.j2mask[sbb],
+            k0.astype(np.float64), k1.astype(np.float64))
+
+
 def _chunk_gps_plan(gps_rows, b0, b1):
     """GNSS row-triple gather plan of the blocks [b0, b1): entries
     [(chunk-relative block, block, rows0)], and the (block, row0) pairs."""
@@ -87,12 +125,14 @@ def _chunk_gps_plan(gps_rows, b0, b1):
     return entries, bb, rr
 
 
-def device_block_stats(da, bs, cov_factors, chunk: int = 16):
+def device_block_stats(da, bs, cov_factors=None, nested=None,
+                       chunk: int = 16):
     """adj_prec per design row, adj_vcv3 per GNSS observation, and
     station-diagonal 3×3 covariance blocks, in block chunks.
 
     da: the DeviceAssembly (tile plans, projectors);
-    cov_factors: flat refined factors (newton_factors output).
+    cov_factors: flat refined factors (newton_factors output), or
+    nested=(factors, part): NestedSchurFactors after newton_refine_cov.
     Returns (adj_prec (B, M) np.float64, vcv3 {(b, row0): (3,3)},
     cov3 (B, Pn, 3, 3) np.float64) — cov3 indexed by station slot."""
     B, M, P = da.B, da.M, da.Pp
@@ -109,13 +149,22 @@ def device_block_stats(da, bs, cov_factors, chunk: int = 16):
     cov3 = np.zeros((B, Pn, 3, 3))
     vcv3 = {}
     gps_rows = da.gps_row_plan()          # per block: (rows0 array)
-    Ainv, Y, Sinv, di, dj, djg, _ = cov_factors
+    if nested is None:
+        Ainv, Y, Sinv, di, dj, djg, _ = cov_factors
+    else:
+        factors, part = nested
+        # refined level-1 pools (device, or host past DTA_COV_DEV_BYTES);
+        # the refined level-2/3 pools stay on the device
+        Ainv, Y = factors._cov_l1_dev or factors._cov_l1_h
+        A2d, Y2d, Sd = factors._l2_dev_refined
+        djg = factors.djg_np
+        di = factors.factors[5]
     di = di.to(torch.float64)
 
     for c0 in range(0, B, chunk):
         sl = slice(c0, c0 + chunk)
-        jmap_c = da._putr(bs.jmap[sl])
-        jmask_c = da._putr(np.asarray(bs.jmask[sl], dtype=np.float64))
+        jmap_np = np.asarray(bs.jmap[sl])
+        jmask_np = np.asarray(bs.jmask[sl], dtype=np.float64)
         t0, t1 = int(da._t_range[c0]), int(da._t_range[c0 + chunk])
         A64 = torch.zeros((chunk, M, P), dtype=torch.float64, device=dev)
         A64[(da._t_b[t0:t1] - c0)[:, None], da._t_r[t0:t1, None],
@@ -124,9 +173,19 @@ def device_block_stats(da, bs, cov_factors, chunk: int = 16):
         entries, bb, rr = _chunk_gps_plan(gps_rows, c0, c0 + chunk)
         r3 = rr[:, None] + np.arange(3)
         Pmat_c = da.Pmat64[sl] if da._has_proj else None
-        ap, d3, v = _flat_chunk(
-            Ainv[sl], Y[sl], Sinv, di[sl], djg, jmap_c, jmask_c, A64,
-            Pmat_c, da._putr(bb), da._putr(r3))
+        common = (A64, Pmat_c, da._putr(bb), da._putr(r3))
+        if nested is None:
+            ap, d3, v = _flat_chunk(Ainv[sl], Y[sl], Sinv, di[sl], djg,
+                                    da._putr(jmap_np), da._putr(jmask_np),
+                                    *common)
+        else:
+            idxs = _nested_chunk_indices(factors, part, jmap_np,
+                                         jmask_np, sl)
+            djg_sel = djg[np.minimum(jmap_np, len(djg) - 1)] * jmask_np
+            ap, d3, v = _nested_chunk(
+                A2d, Y2d, Sd, torch.as_tensor(Ainv[sl], device=dev),
+                torch.as_tensor(Y[sl], device=dev), di[sl],
+                da._putr(djg_sel), *(da._putr(x) for x in idxs), *common)
         adj_prec[sl] = ap.cpu().numpy()
         cov3[sl] = d3.cpu().numpy()
         if len(bb):

@@ -1,5 +1,5 @@
-"""Blocked two-level Schur adjustment of real (all-measurement-type)
-networks on one device.
+"""Blocked Schur adjustment (two-level, or nested three-level) of real
+(all-measurement-type) networks on one device.
 
 The replacement for the reference's phased adjustment
 (`adjust --phased`): instead of the strictly sequential
@@ -18,9 +18,11 @@ The result is algebraically the simultaneous solution — which is exactly
 what the reference's phased mode converges to and cross-checks against.
 
 Port of the JAX package's ``adjust/tpu_blocked.py::adjust_tpu_blocked``
-for ``super_blocks=0`` on one device, with device assembly and the
-device refined solve always on (the JAX package's host-assembly and
-staged routes are not part of this package).
+on one device, two-level (``super_blocks=0``) and nested
+(``super_blocks>0``), with device assembly and the device refined solve.
+The JAX package's host-assembly, host-refinement, staged (host-streamed)
+and mesh routes are not part of this package: where the JAX package
+would take one of them, this one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,17 +58,35 @@ def _block_cov_from_factors(factors, b, ki, kj, inner_idx, junc_idx,
     Schur factors (f32, unity-scaled): N^-1_ii = Ainv + Y Ssel Y^T,
     N^-1_ij = -Y Ssel, N^-1_jj = Ssel; unscaled by di/djg."""
     Ainv, Y, Sinv, di, dj, djg, _ = factors
-    Ainv_b = _host(Ainv[b])[:ki, :ki]
-    Y_b = _host(Y[b])[:ki, :kj]
     jm = np.asarray(jmap_b)[:kj]
-    Ssel = _host(Sinv)[np.ix_(jm, jm)]
-    di_b = _host(di[b])[:ki]
-    djg_b = _host(djg)[jm]
+    return _block_cov(_host(Ainv[b]), _host(Y[b]), _host(di[b]),
+                      _host(Sinv)[np.ix_(jm, jm)], _host(djg)[jm], ki, kj,
+                      inner_idx, junc_idx)
 
-    YS = Y_b @ Ssel
+
+def _block_cov_from_nested(factors, b, ki, kj, inner_idx, junc_idx,
+                           jmap_b):
+    """Same block-inverse identities as _block_cov_from_factors, with
+    the junction covariance recovered through the nested level-2/3
+    factors (nested_junction_cov) instead of a global Sinv."""
+    Ainv_b, Y_b, di_b = factors.level1_block(b)
+    jm = np.asarray(jmap_b)[:kj]
+    return _block_cov(Ainv_b, Y_b, di_b, factors.junction_cov(jm),
+                      factors.djg_np[jm], ki, kj, inner_idx, junc_idx)
+
+
+def _block_cov(Ainv_b, Y_b, di_b, Csel, djg_b, ki, kj, inner_idx,
+               junc_idx):
+    """N^-1_ii = Ainv + Y C Y^T, N^-1_ij = -Y C, N^-1_jj = C for the
+    junction covariance C (scaled), unscaled by di/djg and permuted back
+    to the block's parameter layout."""
+    Ainv_b = Ainv_b[:ki, :ki]
+    Y_b = Y_b[:ki, :kj]
+    di_b = di_b[:ki]
+    YS = Y_b @ Csel
     cov_ii = (Ainv_b + YS @ Y_b.T) * np.outer(di_b, di_b)
     cov_ij = -YS * np.outer(di_b, djg_b)
-    cov_jj = Ssel * np.outer(djg_b, djg_b)
+    cov_jj = Csel * np.outer(djg_b, djg_b)
 
     k = ki + kj
     cov = np.zeros((k, k))
@@ -112,27 +132,56 @@ def _build_partition(nstations: int, blocks):
     return jpi_arr, part
 
 
+def _block_super(B, super_blocks, block_super):
+    """Block→super-block assignment: the given one (length-checked), or
+    contiguous grouping into super_blocks groups."""
+    if block_super is None:
+        return (np.arange(B, dtype=np.int64) * min(super_blocks, B)) // B
+    block_super = np.asarray(block_super, dtype=np.int64)
+    if len(block_super) != B:
+        raise ValueError(f"block_super has {len(block_super)} entries "
+                         f"for {B} blocks")
+    return block_super
+
+
 def adjust_tpu_blocked(net: NetworkData,
                        options: AdjustmentOptions | None = None,
                        seg_file: str | None = None,
                        seg: Segmentation | None = None,
                        super_blocks: int = 0,
+                       block_super: np.ndarray | None = None,
                        device="cuda") -> AdjustmentResult:
-    """Blocked two-level Schur adjustment on one device.
+    """Blocked Schur adjustment on one device.
+
+    super_blocks > 0 routes the solve through the three-level nested
+    Schur factors (parallel/schur.py::NestedSchurFactors) — the
+    national-scale junction path: the segmentation's blocks are grouped
+    contiguously into that many super-blocks, junction parameters inside
+    one super-block are eliminated at level 2, and only the
+    super-junctions form the level-3 system.  block_super overrides the
+    contiguous grouping with an explicit block→super-block assignment
+    (length block_count): for 2D tiled segmentations a grid-aware
+    grouping (utils/synthetic.py::grid_super_assignment) keeps the
+    super-junction frontier O(sqrt(S)) where contiguous 1D bands make
+    nearly every band station a super-junction.
 
     device: where the normals, factors and solves live — "cuda" (the
-    default: the level-1 factor is the hand-written kernel) or "cpu"
-    (every kernel's plain PyTorch version).  super_blocks > 0 (the
-    nested three-level factors) is not part of this package yet."""
-    from ..parallel.schur import BlockSystem, DeviceSchurFactors
+    default: the level-1 and level-2 factors are the hand-written
+    kernel) or "cpu" (every kernel's plain PyTorch version)."""
+    from ..parallel.schur import (BlockSystem, DeviceSchurFactors,
+                                  NestedSchurFactors,
+                                  build_nested_partition)
     from .constraint_elim import ConstraintBasis
     from .device_assembly import DeviceAssembly
-    from .device_solve import DeviceRefinedSolve
+    from .device_solve import DeviceRefinedSolve, check_device_solve
 
-    if super_blocks:
+    if block_super is not None and super_blocks == 0:
+        raise ValueError("block_super given but super_blocks == 0 — the "
+                         "nested path is not active")
+    if os.environ.get("DTA_HOST_ASSEMBLY", "") == "1":
         raise NotImplementedError(
-            "super_blocks > 0 (nested Schur factors) is not ported yet — "
-            "ROADMAP.md, 'The nested path'")
+            "DTA_HOST_ASSEMBLY=1: host assembly is not ported yet "
+            "(ROADMAP.md, M6)")
     device = torch.device(device)
     opts = options or AdjustmentOptions()
     t0 = time.time()
@@ -140,6 +189,8 @@ def adjust_tpu_blocked(net: NetworkData,
         seg = (Segmentation.load(seg_file) if seg_file
                else segment_network(net))
     B = seg.block_count
+    if super_blocks > 0:
+        block_super = _block_super(B, super_blocks, block_super)
     blocks = [Block(net, opts, seg, b) for b in range(B)]
     first_fwd = _first_appearances(blocks, "fwd")
 
@@ -168,10 +219,12 @@ def adjust_tpu_blocked(net: NetworkData,
     max_corr = np.inf
     factors = None
     bs = None
+    nested_part = None
 
     # device-side normals formation (AᵀV⁻¹A as batched matmuls,
     # device_assembly.py) and the refined solve (device_solve.py)
     da = DeviceAssembly(blocks, part, basis, first_fwd, device=device)
+    check_device_solve(da)
     dev_solver = DeviceRefinedSolve(da)
     prof = ({"setup": 0.0, "fill": 0.0, "normals": 0.0, "rhs": 0.0,
              "build": 0.0, "factor": 0.0, "solve": 0.0, "update": 0.0,
@@ -205,16 +258,16 @@ def adjust_tpu_blocked(net: NetworkData,
         if prof is not None:
             prof["rhs"] += time.perf_counter() - _t
             _t = time.perf_counter()
-        Nii, Nij, Njj = da.build_device(values=vals_dev)
+        N32 = da.build_device(values=vals_dev)
         _sync()
         if prof is not None:
             prof["normals"] += time.perf_counter() - _t
             _t = time.perf_counter()
-        bs = BlockSystem(Nii=Nii, Nij=Nij, Njj=Njj,
-                         bi=np.zeros((da.Bp, da.ni)),
+        bs = BlockSystem(*N32, bi=np.zeros((da.Bp, da.ni)),
                          bj=np.zeros((da.Bp, da.nj)),
                          jmap=da.jmap_np, jmask=da.jmask_np,
                          imask=da.imask_np, nj_global=da.nj_global)
+        del N32
         if prev_bs is not None:
             bs.copy_topology_caches(prev_bs)
         # re-factor when geometry changed (non-GPS present) or first pass
@@ -223,18 +276,31 @@ def adjust_tpu_blocked(net: NetworkData,
         # with constraints eliminated the scaled systems condition at
         # ~1e4-1e6: f32 factorization + f64 residual refinement reaches
         # f64-level solutions
+        if super_blocks > 0 and nested_part is None:
+            nested_part = build_nested_partition(bs, block_super)
         with record_function("dta.factor"):
             if factors is None:
-                factors = DeviceSchurFactors(bs)
-            elif refactor:
-                factors.update(bs)
-            else:
+                factors = (NestedSchurFactors(bs, nested_part)
+                           if super_blocks > 0 else DeviceSchurFactors(bs))
+            elif not refactor:
                 factors.bs = bs
+            elif super_blocks > 0:
+                factors.refactor(bs)
+            else:
+                factors.update(bs)
             _sync()
         if prof is not None:
             prof["factor"] += time.perf_counter() - _t
             _t = time.perf_counter()
-        xi, xj, solve_ev = dev_solver.solve_flat(factors, vals_dev, mmc_dev)
+        if super_blocks > 0:
+            xi, xj, solve_ev = dev_solver.solve_nested(factors, vals_dev,
+                                                       mmc_dev)
+            # the nested factors are self-contained: the float32 pools
+            # are rebuilt at the next re-linearisation — free them now
+            bs.Nii = bs.Nij = bs.Njj = None
+        else:
+            xi, xj, solve_ev = dev_solver.solve_flat(factors, vals_dev,
+                                                     mmc_dev)
         if prof is not None:
             prof["solve"] += time.perf_counter() - _t
             _t = time.perf_counter()
@@ -306,7 +372,8 @@ def adjust_tpu_blocked(net: NetworkData,
     # extraction against the float64 pools built once on the device; the
     # float32 normals pools are no longer needed — free them first
     bs.Nii = bs.Nij = bs.Njj = None
-    factors._N32 = None
+    if super_blocks == 0:
+        factors._N32 = None
     prof_sub = {}
 
     def _subt(name, _last=[_t_stats]):
@@ -320,7 +387,11 @@ def adjust_tpu_blocked(net: NetworkData,
 
     N64 = da.build_f64()
     _subt("stats.f64build")
-    cov_factors = factors.newton_factors(N64=N64)
+    if super_blocks == 0:
+        cov_factors = factors.newton_factors(N64=N64)
+    else:
+        cov_factors = None
+        factors.newton_refine_cov(N64=N64)
     del N64
     _subt("stats.newton")
     S = net.nstations
@@ -330,6 +401,18 @@ def adjust_tpu_blocked(net: NetworkData,
     dense_max = int(os.environ.get("DTA_DENSE_COV_MAX_STN", "5000"))
     cov = np.zeros((3 * S, 3 * S)) if S <= dense_max else None
     cov_stn = np.zeros((S, 3, 3))
+
+    def _block_cov_at(b):
+        """Block b's full covariance from the refined factors."""
+        inner_p, junc_p, junc_g = part[b]
+        if super_blocks > 0:
+            return _block_cov_from_nested(
+                factors, b, len(inner_p), len(junc_p), inner_p, junc_p,
+                bs.jmap[b])
+        return _block_cov_from_factors(
+            cov_factors, b, len(inner_p), len(junc_p), inner_p, junc_p,
+            bs.jmap[b], bs.jmask[b])
+
     # device statistics: adj_prec / GNSS VCVs / station covariance blocks
     # batched on the device — replaces the per-block host O(m n^2)
     # products (ComputePrecisionAdjMsrs, dnaadjust.cpp:7784).  The
@@ -340,8 +423,9 @@ def adjust_tpu_blocked(net: NetworkData,
     dev_prec = dev_vcv3 = dev_cov3 = None
     if use_dev_stats:
         from .device_stats import device_block_stats
-        dev_prec, dev_vcv3, dev_cov3 = device_block_stats(da, bs,
-                                                          cov_factors)
+        dev_prec, dev_vcv3, dev_cov3 = device_block_stats(
+            da, bs, cov_factors=cov_factors,
+            nested=(factors, nested_part) if super_blocks > 0 else None)
     _subt("stats.device")
     # pre-group the device GNSS VCVs per block once
     vcv3_by_block = {}
@@ -362,9 +446,7 @@ def adjust_tpu_blocked(net: NetworkData,
                 cov_stn[g] = (Pg @ c3[li] @ Pg if Pg is not None
                               else c3[li])
         else:
-            cov_b = _block_cov_from_factors(
-                cov_factors, b, len(inner_p), len(junc_p),
-                inner_p, junc_p, bs.jmap[b], bs.jmask[b])
+            cov_b = _block_cov_at(b)
             # eliminated constrained directions carry a unit pin in the
             # factored system; project them out so they report zero
             # variance
@@ -414,11 +496,8 @@ def adjust_tpu_blocked(net: NetworkData,
     if cov is None:
         from .block_cov import BlockCovProvider
 
-        def _compute_block_cov(b, _cf=cov_factors):
-            inner_p, junc_p, junc_g = part[b]
-            cb = _block_cov_from_factors(
-                _cf, b, len(inner_p), len(junc_p),
-                inner_p, junc_p, bs.jmap[b], bs.jmask[b])
+        def _compute_block_cov(b):
+            cb = _block_cov_at(b)
             blk = blocks[b]
             basis.project_cov(blk.stations, blk.asm.local, cb)
             return cb

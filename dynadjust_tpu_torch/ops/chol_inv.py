@@ -120,6 +120,8 @@ def _launch(Nii: torch.Tensor):
     if err:
         raise RuntimeError(f"chol_inv kernel launch failed: CUDA error {err}")
     batched_cholesky_inverse.launches += 1
+    shapes = batched_cholesky_inverse.shapes
+    shapes[(B, n0)] = shapes.get((B, n0), 0) + 1
     return Linv[:, :n0, :n0], status
 
 
@@ -127,8 +129,9 @@ def batched_cholesky_inverse(Nii: torch.Tensor):
     """(B, n, n) SPD -> (Linv = chol(Nii)^-1 float32, status (B,) int32).
 
     CUDA tensors run the kernel (and count one launch in
-    ``batched_cholesky_inverse.launches``); CPU tensors run the plain
-    version; other devices raise."""
+    ``batched_cholesky_inverse.launches``, and one in its
+    ``shapes[(B, n)]``); CPU tensors run the plain version; other devices
+    raise."""
     if Nii.ndim != 3 or Nii.shape[1] != Nii.shape[2]:
         raise ValueError(f"expected a (B, n, n) batch, got {tuple(Nii.shape)}")
     if Nii.device.type == "cuda":
@@ -139,15 +142,17 @@ def batched_cholesky_inverse(Nii: torch.Tensor):
 
 
 batched_cholesky_inverse.launches = 0
+batched_cholesky_inverse.shapes = {}
 
 
 def reduce_from_linv(Linv, Nij, Njj):
-    """(Ainv, Y, S) from the triangular inverse: float32 matmuls."""
-    f32 = torch.float32
-    W = Linv @ Nij.to(f32)
+    """(Ainv, Y, S) from the triangular inverse: matmuls in Linv's dtype.
+    Njj need not be positive definite (the nested level 2 passes zeros)."""
+    dt = Linv.dtype
+    W = Linv @ Nij.to(dt)
     Ainv = Linv.transpose(1, 2) @ Linv
     Y = Linv.transpose(1, 2) @ W
-    S = Njj.to(f32) - W.transpose(1, 2) @ W
+    S = Njj.to(dt) - W.transpose(1, 2) @ W
     return Ainv, Y, S
 
 

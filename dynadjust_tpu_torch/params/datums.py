@@ -1,9 +1,10 @@
-"""Datum records: canonical frame names, static/dynamic classification,
-reference epochs — the part of the datum registry the network model needs.
+"""Datum registry: names, EPSG codes, static/dynamic classification, epochs.
 
-Parity reference: dnadatum.hpp / dnaepsg.hpp of DynAdjust (here reduced to
-the Australian and ITRF/WGS84 frames; the full EPSG registry is not part
-of this package).
+Parity reference: dnadatum.hpp and dnaepsg.hpp (EPSG registry) of
+DynAdjust — here reduced to the data actually needed for frame
+transformation and reporting.  A copy of the JAX package's
+``params/datums.py``, with the full EPSG registry (``params/epsg.py``)
+folded into the alias, code and epoch tables.
 """
 
 from dataclasses import dataclass
@@ -57,6 +58,25 @@ def _internal_name(ref_label: str) -> str:
     return key
 
 
+# fold the full EPSG registry (params/epsg.py — every frame family the
+# reference's dnaepsg.hpp accepts: NAD83(CSRS) v2-v8, SIRGAS, Yacare,
+# WGS84 realisations) into the alias / code / epoch tables
+from . import epsg as _epsg_registry
+
+for _fr in _epsg_registry.FRAMES:
+    _canon = _internal_name(_fr.name)
+    for _al in _fr.aliases:
+        _ALIASES.setdefault(_al.upper(), _canon)
+    _ALIASES.setdefault(_fr.name.upper(), _canon)
+    _EPSG.setdefault(_canon,
+                     _fr.code_xyz if _fr.code_xyz is not None else _fr.code)
+    if _fr.static and _fr.epoch and _canon not in _STATIC_REFERENCE_EPOCH:
+        _d, _m, _y = _fr.epoch.split(".")
+        _days = 366.0 if calendar.isleap(int(_y)) else 365.0
+        _doy = _dt.date(int(_y), int(_m), int(_d)).timetuple().tm_yday
+        _STATIC_REFERENCE_EPOCH[_canon] = round(
+            int(_y) + (_doy - 0.5) / _days, 4)
+
 
 def canonical_frame(name: str) -> str:
     key = name.strip().upper()
@@ -69,6 +89,23 @@ def canonical_frame(name: str) -> str:
         key = "WGS84" if inner == "ENSEMBLE" else f"WGS84_{inner}"
     return key
 
+
+# every frame label the reference recognises (dnaepsg.hpp registry);
+# used to reject unknown -r labels (import-no-frame CI test)
+KNOWN_FRAMES = (_DYNAMIC_FRAMES | {"GDA94", "GDA2020", "AGD66", "AGD84"}
+                | {_internal_name(f.name) for f in _epsg_registry.FRAMES})
+
+
+def frame_from_epsg_code(code) -> str:
+    """Any EPSG code the reference accepts (geographic 2D/3D or
+    geocentric) -> this module's canonical frame name; '' if unknown."""
+    fr = _epsg_registry.frame_for_code(code) \
+        if str(code).strip().lstrip("-").isdigit() else None
+    return _internal_name(fr.name) if fr is not None else ""
+
+
+def is_known_frame(name: str) -> bool:
+    return canonical_frame(name) in KNOWN_FRAMES
 
 
 def is_dynamic_frame(name: str) -> bool:

@@ -1,8 +1,10 @@
-"""The port's whole blocked adjustment (adjust_tpu_blocked, two-level)
-against the JAX package's on one network, and the port's synthetic
-network generator against the JAX one."""
+"""The port's whole blocked adjustment (adjust_tpu_blocked, two-level
+and nested) against the JAX package's on one network, its refusals of
+the routes it does not have, and the port's synthetic network generator
+against the JAX one."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ from dynadjust_tpu.adjust.tpu_blocked import \
 from dynadjust_tpu.utils.synthetic_mixed import \
     synthetic_mixed_network as jsynth
 from dynadjust_tpu_torch.adjust import AdjustmentOptions
+from dynadjust_tpu_torch.adjust.device_solve import (check_device_solve,
+                                                     pool_bytes)
 from dynadjust_tpu_torch.adjust.tpu_blocked import adjust_tpu_blocked
 from dynadjust_tpu_torch.network.data import from_reference
 from dynadjust_tpu_torch.utils.synthetic_mixed import \
@@ -24,43 +28,60 @@ torch.set_num_threads(2)
 NET = dict(rows=12, cols=12, block_rows=6, block_cols=6)
 
 
-def _pair(monkeypatch, device_stats: bool):
-    if device_stats:
-        monkeypatch.setenv("DTA_DENSE_COV_MAX_STN", "1")
-    else:
-        monkeypatch.delenv("DTA_DENSE_COV_MAX_STN", raising=False)
-    net, seg = jsynth(**NET)
-    ours_net, ours_seg = from_reference(net, seg)
-    ours = adjust_tpu_blocked(ours_net, AdjustmentOptions(), seg=ours_seg,
-                              device="cpu")
-    ref = jax_adjust(net, JA.AdjustmentOptions(), seg=seg)
+def _pair(device_stats: bool, super_blocks: int = 0):
+    mp = pytest.MonkeyPatch()
+    try:
+        if device_stats:
+            mp.setenv("DTA_DENSE_COV_MAX_STN", "1")
+        else:
+            mp.delenv("DTA_DENSE_COV_MAX_STN", raising=False)
+        net, seg = jsynth(**NET)
+        ours_net, ours_seg = from_reference(net, seg)
+        ours = adjust_tpu_blocked(ours_net, AdjustmentOptions(),
+                                  seg=ours_seg, super_blocks=super_blocks,
+                                  device="cpu")
+        ref = jax_adjust(net, JA.AdjustmentOptions(), seg=seg,
+                         super_blocks=super_blocks)
+    finally:
+        mp.undo()
     return ours, ref
 
 
 @pytest.fixture(scope="module")
 def dense_pair():
-    mp = pytest.MonkeyPatch()
-    try:
-        yield _pair(mp, device_stats=False)
-    finally:
-        mp.undo()
+    return _pair(device_stats=False)
 
 
 @pytest.fixture(scope="module")
 def stats_pair():
-    mp = pytest.MonkeyPatch()
-    try:
-        yield _pair(mp, device_stats=True)
-    finally:
-        mp.undo()
+    return _pair(device_stats=True)
 
 
-@pytest.mark.parametrize("which", ["dense", "device_stats"])
-def test_adjustment_matches_jax(dense_pair, stats_pair, which):
+@pytest.fixture(scope="module")
+def nested_pairs():
+    """super_blocks=2: host statistics (dense covariance) and, past
+    DTA_DENSE_COV_MAX_STN, the nested device statistics."""
+    return {"dense": _pair(False, super_blocks=2),
+            "device_stats": _pair(True, super_blocks=2)}
+
+
+def _pair_of(which, dense_pair, stats_pair, nested_pairs):
+    if which.startswith("nested-"):
+        return nested_pairs[which[len("nested-"):]]
+    return dense_pair if which == "dense" else stats_pair
+
+
+# two-level, then nested (super_blocks=2)
+PAIRS = ["dense", "device_stats", "nested-dense", "nested-device_stats"]
+
+
+@pytest.mark.parametrize("which", PAIRS)
+def test_adjustment_matches_jax(dense_pair, stats_pair, nested_pairs,
+                                which):
     """The bounds of tests/test_device_assembly.py's
     test_end_to_end_device_vs_host: xyz 1e-7 m, sigma0 1e-9, station
     covariances 1e-9 relative (float64-refined solves and covariances)."""
-    ours, ref = dense_pair if which == "dense" else stats_pair
+    ours, ref = _pair_of(which, dense_pair, stats_pair, nested_pairs)
     assert ours.status == ref.status == "Converged"
     assert ours.iterations == ref.iterations
     assert np.abs(ours.xyz - ref.xyz).max() < 1e-7
@@ -73,11 +94,12 @@ def test_adjustment_matches_jax(dense_pair, stats_pair, which):
                                     ref.unknown_count)
 
 
-@pytest.mark.parametrize("which", ["dense", "device_stats"])
-def test_measurement_stats_match_jax(dense_pair, stats_pair, which):
+@pytest.mark.parametrize("which", PAIRS)
+def test_measurement_stats_match_jax(dense_pair, stats_pair, nested_pairs,
+                                     which):
     """Adjusted-measurement precisions and GNSS VCVs: 1e-9 relative (the
     bounds of test_device_stats_match_host)."""
-    ours, ref = dense_pair if which == "dense" else stats_pair
+    ours, ref = _pair_of(which, dense_pair, stats_pair, nested_pairs)
     assert len(ours.msr_stats) == len(ref.msr_stats)
     for a, b in zip(ours.msr_stats, ref.msr_stats):
         assert (a.rec_idx, a.mtype, a.cardinal) == \
@@ -130,6 +152,85 @@ def test_solve_and_refinement_evidence_recorded(dense_pair):
     assert ev["junction_err"] < 1e-8
 
 
+@pytest.mark.parametrize("stats", ["dense", "device_stats"])
+def test_nested_refinement_evidence_recorded(nested_pairs, stats):
+    """The bounds of tests/test_device_assembly.py's
+    test_solve_and_refinement_evidence_recorded on the nested path."""
+    ours, ref = nested_pairs[stats]
+    assert ours.status == "Converged"
+    for it in ours.iteration_log:
+        assert it["solve_rel"] < 1e-9          # rtol 1e-10 + stall slack
+        assert 0 <= it["solve_rounds"] <= 12
+    ev = ours.refine_evidence
+    assert set(ev) == set(ref.refine_evidence)
+    assert ev["l1_err"] < 1e-8 and ev["l1_rounds"] >= 1
+    assert ev["l2_err"] < 1e-8 and ev["l3_err"] < 1e-8
+
+
+def test_nested_block_covariance_provider(nested_pairs):
+    """Past the dense cap the nested within-block covariances equal the
+    nested dense route's."""
+    dense, _ = nested_pairs["dense"]
+    blocked, _ = nested_pairs["device_stats"]
+    assert blocked.cov_xyz is None and blocked.block_cov is not None
+    bc = blocked.block_cov
+    sc = np.abs(dense.cov_xyz).max()
+    for i in (0, 7, 33, 60):
+        for j in bc.partners(i):
+            j = int(j)
+            Cd = dense.cov_xyz[3 * i:3 * i + 3, 3 * j:3 * j + 3]
+            assert np.abs(bc.pair_cov(i, j) - Cd).max() <= 1e-9 * sc
+
+
+@pytest.mark.parametrize("case", ["without_nested", "wrong_length"])
+def test_block_super_validation(case):
+    """As tests/test_device_assembly.py's test_block_super_validation: an
+    explicit block_super is length-checked, and passing it without the
+    nested path fails loudly."""
+    net, seg = synthetic_mixed_network(8, 8, block_rows=4, block_cols=4)
+    sb, n = (0, seg.block_count) if case == "without_nested" else \
+        (2, seg.block_count - 1)
+    with pytest.raises(ValueError, match="block_super"):
+        adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                           super_blocks=sb,
+                           block_super=np.zeros(n, dtype=np.int64),
+                           device="cpu")
+
+
+@pytest.mark.parametrize("env", [("DTA_HOST_ASSEMBLY", "1"),
+                                 ("DTA_DEVICE_SOLVE", "0"),
+                                 ("DTA_DEVICE_SOLVE_BYTES", "1")],
+                         ids=lambda e: e[0])
+def test_host_routes_raise(monkeypatch, env):
+    """Where the JAX package would leave the device route for host
+    assembly or its host refinement loop, the port raises and names the
+    variable and the ROADMAP item that ports the route."""
+    monkeypatch.setenv(*env)
+    net, seg = synthetic_mixed_network(8, 8, block_rows=4, block_cols=4)
+    with pytest.raises(NotImplementedError, match=rf"{env[0]}.*M6"):
+        adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                           device="cpu")
+
+
+def test_device_solve_budget():
+    """The design-pool budget of the JAX package's want_device_solve:
+    the 10k network's pool (9 blocks, 9,413 rows, 3,876 columns) is
+    under the 8e9-byte default, one over it raises, and
+    DTA_DEVICE_SOLVE=1 overrides the budget."""
+    ten_k = SimpleNamespace(Bp=9, M=9413, Pp=3876)
+    assert pool_bytes(ten_k) == 9 * 9413 * 3876 * 8.0
+    check_device_solve(ten_k)
+    big = SimpleNamespace(Bp=90, M=9413, Pp=3876)
+    with pytest.raises(NotImplementedError, match="DTA_DEVICE_SOLVE_BYTES"):
+        check_device_solve(big)
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("DTA_DEVICE_SOLVE", "1")
+        check_device_solve(big)
+    finally:
+        mp.undo()
+
+
 def test_profile_phases(monkeypatch):
     monkeypatch.setenv("DTA_PROFILE", "1")
     net, seg = synthetic_mixed_network(8, 8, block_rows=4, block_cols=4)
@@ -142,13 +243,6 @@ def test_profile_phases(monkeypatch):
         "stats.f64build", "stats.newton", "stats.device", "stats.host"}
     for it in res.iteration_log:
         assert keys <= set(it["phases"])
-
-
-def test_nested_path_is_not_ported():
-    net, seg = synthetic_mixed_network(8, 8, block_rows=4, block_cols=4)
-    with pytest.raises(NotImplementedError):
-        adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                           super_blocks=2, device="cpu")
 
 
 def _records_equal(a, b):

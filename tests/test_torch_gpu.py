@@ -120,3 +120,55 @@ def test_adjustment_on_card_matches_cpu(cuda):
     assert abs(g.sigma_zero - c.sigma_zero) < 1e-9
     sc = np.abs(c.cov_stn).max()
     assert np.abs(g.cov_stn - c.cov_stn).max() / sc < 1e-9
+
+
+@pytest.mark.gpu
+def test_kernel_at_level2_shape_with_identity_block(cuda):
+    """The nested path's level-2 shape at 10,000 stations: 4 super-block
+    systems of 405 slots, of which 405, 93, 93 and 0 are real and the
+    rest identity padding; the last system is all identity.  Status 0
+    everywhere, and the bound (2e-5 of max|Linv|) and residual gate
+    (at most twice the plain version's) of the tests above."""
+    n = 405
+    N64 = np.tile(np.eye(n), (4, 1, 1))
+    for k, m in enumerate((405, 93, 93)):
+        N64[k, :m, :m] = _spd(1, m, k)[0]
+    N = torch.tensor(N64, dtype=torch.float32, device=cuda)
+    Lk, sk = batched_cholesky_inverse(N)
+    Lp, sp = cholesky_inverse_plain(N)
+    assert sk.tolist() == sp.tolist() == [0] * 4
+    assert (Lk - Lp).abs().max() <= 2e-5 * Lp.abs().max()
+    assert torch.equal(Lk[3], torch.eye(n, device=cuda))
+    N64 = torch.tensor(N64, device=cuda)
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+
+    def residual(L):
+        L = L.double()
+        return float((L @ N64 @ L.transpose(1, 2) - eye).abs().max())
+
+    assert residual(Lk) <= 2.0 * residual(Lp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse_bytes", ["6e8", "0"],
+                         ids=["one_pass", "staged"])
+def test_nested_adjustment_on_card_matches_cpu(cuda, monkeypatch,
+                                               fuse_bytes):
+    """The nested adjustment (super_blocks=2) of the 24 x 24 network on
+    the card and on the CPU, on both factor routes: the bounds of
+    test_end_to_end_device_vs_host."""
+    monkeypatch.setenv("DTA_NESTED_FUSE_BYTES", fuse_bytes)
+    out = {}
+    for dev in (cuda, "cpu"):
+        net, seg = synthetic_mixed_network(24, 24, block_rows=12,
+                                           block_cols=12)
+        out[str(dev)] = adjust_tpu_blocked(net, AdjustmentOptions(),
+                                           seg=seg, super_blocks=2,
+                                           device=dev)
+    g, c = out["cuda"], out["cpu"]
+    assert g.status == c.status == "Converged"
+    assert g.iterations == c.iterations
+    assert np.abs(g.xyz - c.xyz).max() < 1e-7
+    assert abs(g.sigma_zero - c.sigma_zero) < 1e-9
+    sc = np.abs(c.cov_stn).max()
+    assert np.abs(g.cov_stn - c.cov_stn).max() / sc < 1e-9
