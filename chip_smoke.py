@@ -44,23 +44,52 @@ script exits non-zero without printing a result):
   7. nested card against CPU: the 24 x 24 network with super_blocks=2,
      on the one-pass factor route and on the staged route
      (DTA_NESTED_FUSE_BYTES=0), with the bounds of phase 4;
-  8. one {"kernels": [...]} line, the card line, and the result line.
+  8. cli: the port's command line (dynadjust_tpu_torch.cli.main,
+     in-process so that the launch counts can be read; the first import
+     as a `python -m dynadjust_tpu_torch` subprocess) on DNA files
+     written by the port's dna_writer.  1,600 stations (40 x 40, seed 0):
+     import, segment --min-inner-stns 300 --max-block-stns 600 and one
+     adjust per route, each after a fresh import and segment: host
+     float64, --tpu (the dense solve: the kernel at (1, 3S) once per
+     iteration), --phased --tpu, and --phased --tpu --tpu-super-blocks 2;
+     all converge in the same iterations with sigma zero 0.998 (the JAX
+     package's CLI on the same files) and PASSED, .xyz files within 1e-4
+     of the host route's number by number and the saved xyz within
+     1e-6 m of it.  10,000 stations: import, segment --min-inner-stns
+     600 --max-block-stns 1200 and adjust --phased --tpu, held to the
+     in-memory two-level run's iterations and to adjust_tpu_blocked
+     called directly on the saved network and segmentation with
+     super_blocks=4 (xyz within 1e-6 m); its .results.pkl (past the
+     dense-covariance cap) loads back without torch.  Each verb is
+     timed, write_adj on its own;
+  9. kernel at every (B, n) that the CLI routes of phase 8 launched it
+     at (the dense (1, 3S), the level-1 blocks of the CLI's segmentation
+     at 1,600 and 10,000 stations, and the level-2 systems of
+     --tpu-super-blocks 2), with the gates of phase 2, each timed
+     against the plain version and the library;
+ 10. one {"kernels": [...]} line, the card line, and the result line.
 
 Needs one card; exits non-zero when torch.cuda.is_available() is false.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from dynadjust_tpu_torch import cli, project
 from dynadjust_tpu_torch.adjust import AdjustmentOptions
 from dynadjust_tpu_torch.adjust.tpu_blocked import (_build_partition,
                                                     adjust_tpu_blocked)
@@ -68,7 +97,10 @@ from dynadjust_tpu_torch.ops import kernels
 from dynadjust_tpu_torch.ops.chol_inv import (batched_cholesky_inverse,
                                               cholesky_inverse_plain,
                                               fused_block_reduce)
+from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
+                                                       write_dna_stn)
 from dynadjust_tpu_torch.parallel.schur import build_nested_partition
+from dynadjust_tpu_torch.segment import Segmentation
 from dynadjust_tpu_torch.utils.synthetic import grid_super_assignment
 from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
 
@@ -508,6 +540,196 @@ def phase_card_vs_cpu(label="two-level", **kw):
     _check(dx < 1e-7 and ds < 1e-9 and dc < 1e-9, "cuda vs cpu bounds")
 
 
+# the port's CLI routes at 1,600 stations: adjust's arguments per route
+CLI_ROUTES = {"host": [], "dense": ["--tpu"],
+              "phased": ["--phased", "--tpu"],
+              "phased_sb2": ["--phased", "--tpu", "--tpu-super-blocks", "2"]}
+# sigma zero of the JAX package's CLI on the same 40 x 40 files (CPU)
+CLI_SIGMA0_40 = "0.998"
+_NUM = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
+
+
+def _verb(folder, *argv):
+    """One verb of the port's CLI in-process: (seconds, its stdout)."""
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--output-folder", str(folder)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    out = buf.getvalue()
+    _check(rc == 0, f"{' '.join(argv)} exited {rc}:\n{out[-3000:]}")
+    return secs, out
+
+
+def _verb_subprocess(folder, *argv):
+    """One verb as `python -m dynadjust_tpu_torch`: seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent), env.get("PYTHONPATH", "")])
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "dynadjust_tpu_torch", *argv,
+                        "--output-folder", str(folder)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    _check(r.returncode == 0, f"python -m dynadjust_tpu_torch "
+           f"{' '.join(argv)} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    return time.perf_counter() - t
+
+
+def _files_agree(a, b, tol):
+    """compare_files semantics: lines equal, or the same non-numeric text
+    with every number within tol.  Returns the largest difference."""
+    la, lb = Path(a).read_text().splitlines(), Path(b).read_text().splitlines()
+    _check(len(la) == len(lb), f"{a} and {b} differ in length")
+    worst = 0.0
+    for x, y in zip(la, lb):
+        if x == y:
+            continue
+        nx, ny = _NUM.findall(x), _NUM.findall(y)
+        _check(len(nx) == len(ny) and _NUM.sub("#", x) == _NUM.sub("#", y),
+               f"{a} vs {b}: {x!r} / {y!r}")
+        worst = max([worst] + [abs(float(p) - float(q))
+                               for p, q in zip(nx, ny)])
+    _check(worst <= tol, f"{a} vs {b}: numbers differ by {worst} > {tol}")
+    return worst
+
+
+class _NoTorchUnpickler(pickle.Unpickler):
+    """Loads a saved result, refusing any torch class in it."""
+
+    def find_class(self, module, name):
+        _check(not module.startswith("torch"),
+               f"the saved result holds {module}.{name}")
+        return super().find_class(module, name)
+
+
+def _cli_adjust(folder, name, extra):
+    """adjust NAME in folder with the launch counts zeroed just before and
+    read just after: (result, seconds, the verb's own step times (load,
+    adjust, results.pkl, write_adj, ...), launches, launches by (B, n),
+    summary lines)."""
+    batched_cholesky_inverse.launches = 0
+    batched_cholesky_inverse.shapes = {}
+    secs, out = _verb(folder, "adjust", name, *extra)
+    launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    with open(Path(folder) / f"{name}.results.pkl", "rb") as f:
+        res = _NoTorchUnpickler(f).load()
+    times = re.search(r"Times \(s\): (.*)", out).group(1).split()
+    steps = {k: float(v) for k, v in zip(times[::2], times[1::2])}
+    summary = [ln.strip() for ln in out.splitlines()
+               if ln.startswith(("+ Converged", "+ Failed", "  Chi"))]
+    return res, secs, steps, launches, shapes, summary
+
+
+def phase_cli(work, flat_iterations):
+    """The port's CLI at 1,600 and 10,000 stations (phase 8)."""
+    out = {"launches": {}, "seconds": {}, "shapes": {}}
+    d = Path(work) / "n40"
+    d.mkdir()
+    net, _ = synthetic_mixed_network(40, 40, block_rows=34, block_cols=34,
+                                     seed=0)
+    write_dna_stn(str(d / "n40.stn"), net)
+    write_dna_msr(str(d / "n40.msr"), net)
+    files = [str(d / "n40.stn"), str(d / "n40.msr")]
+    res = {}
+    for route, extra in CLI_ROUTES.items():
+        f = d / route
+        f.mkdir()
+        if route == "host":
+            t_imp = _verb_subprocess(f, "import", "-n", "n40", *files)
+        else:
+            t_imp, imp_out = _verb(f, "import", "-n", "n40", *files)
+            if route == "dense":
+                _say(f"cli 40x40 {imp_out.splitlines()[-1].strip()}")
+        t_seg, seg_out = _verb(f, "segment", "n40", "--min-inner-stns",
+                               "300", "--max-block-stns", "600")
+        r, t, steps, launches, shapes, summary = _cli_adjust(f, "n40", extra)
+        res[route] = r
+        out["launches"][f"cli_{route}"] = launches
+        out["shapes"][f"cli_{route}"] = list(shapes)
+        out["seconds"][f"40x40 {route}"] = {
+            "import": t_imp, "segment": t_seg, "adjust": t,
+            "adjust_steps": steps}
+        _say(f"cli 40x40 {route}: import {t_imp:.2f} s, segment "
+             f"{t_seg:.2f} s ({seg_out.count('    block ')} blocks), "
+             f"adjust {t:.2f} s (steps {steps}); "
+             f"{' | '.join(summary)}; chol_inv launches {launches} "
+             f"{shapes}; phases {r.profile}")
+        if route == "dense":
+            _check(launches == r.iterations and len(shapes) == 1,
+                   f"the dense route launched the kernel once per "
+                   f"iteration at one shape ({launches}, {shapes})")
+            out["dense_shape"] = next(iter(shapes))
+        elif route == "host":
+            _check(launches == 0, "the host route runs no kernel")
+        else:
+            _check(launches > 0, f"the {route} route launched the kernel")
+    host = res["host"]
+    for route, r in res.items():
+        dxyz = float(np.abs(r.xyz - host.xyz).max())
+        worst = _files_agree(d / route / "n40.xyz", d / "host" / "n40.xyz",
+                             1e-4)
+        _say(f"cli 40x40 {route} vs host: {r.iterations} iterations "
+             f"(host {host.iterations}), sigma0 {r.sigma_zero:.3f} "
+             f"{r.pass_fail}, saved xyz {dxyz:.3e} m (<= 1e-6), .xyz "
+             f"numbers {worst:.1e} (<= 1e-4)")
+        _check(r.status == "Converged", f"{route}: {r.status}")
+        _check(r.iterations == host.iterations, f"{route} iterations")
+        _check(dxyz <= 1e-6, f"{route} xyz vs host {dxyz}")
+        _check(f"{r.sigma_zero:.3f}" == CLI_SIGMA0_40
+               and r.pass_fail == "PASSED",
+               f"{route}: sigma0 {r.sigma_zero:.3f} {r.pass_fail}")
+
+    # 10,000 stations through the CLI's own segmentation
+    d = Path(work) / "n10k"
+    d.mkdir()
+    net, _ = synthetic_mixed_network(100, 100, block_rows=34, block_cols=34,
+                                     seed=0)
+    write_dna_stn(str(d / "n10k.stn"), net)
+    write_dna_msr(str(d / "n10k.msr"), net)
+    t_imp, imp_out = _verb(d, "import", "-n", "n10k", str(d / "n10k.stn"),
+                           str(d / "n10k.msr"))
+    _say(f"cli 10k {imp_out.splitlines()[-1].strip()}")
+    t_seg = _verb(d, "segment", "n10k", "--min-inner-stns", "600",
+                  "--max-block-stns", "1200")[0]
+    net0 = project.load_network(str(d), "n10k")
+    seg = Segmentation.load(str(d / "n10k.seg.pkl"))
+    sizes = [len(seg.parameter_stations(b)) for b in range(seg.block_count)]
+    counts = np.bincount(np.concatenate(
+        [seg.parameter_stations(b) for b in range(seg.block_count)]))
+    njs = int((counts > 1).sum())
+    _say(f"cli 10k segmentation: {seg.block_count} blocks, largest "
+         f"{max(sizes)} stations, {njs} junction stations ({3 * njs} "
+         f"junction parameters)")
+    r, t, steps, launches, shapes, summary = _cli_adjust(
+        d, "n10k", ["--phased", "--tpu"])
+    out["launches"]["cli_10k_phased"] = launches
+    out["shapes"]["cli_10k_phased"] = list(shapes)
+    out["seconds"]["10k phased"] = {"import": t_imp, "segment": t_seg,
+                                    "adjust": t, "adjust_steps": steps}
+    _say(f"cli 10k phased: import {t_imp:.2f} s, segment {t_seg:.2f} s, "
+         f"adjust {t:.2f} s (steps {steps}); "
+         f"{' | '.join(summary)}; chol_inv launches {launches} {shapes}; "
+         f"phases {r.profile}")
+    _check(r.status == "Converged" and r.iterations == flat_iterations,
+           f"10k CLI: {r.status} in {r.iterations} (in-memory "
+           f"{flat_iterations})")
+    _check(r.cov_xyz is None and r.block_cov is not None,
+           "10k results are past the dense-covariance cap")
+    _check(launches > 0, "the 10k CLI route launched the kernel")
+    t = time.perf_counter()
+    direct = adjust_tpu_blocked(net0, AdjustmentOptions(), seg=seg,
+                                super_blocks=4, device="cuda")
+    dxyz = float(np.abs(r.xyz - direct.xyz).max())
+    _say(f"cli 10k vs adjust_tpu_blocked(super_blocks=4) on the saved "
+         f"network: {direct.iterations} iterations, xyz {dxyz:.3e} m "
+         f"(<= 1e-6), {time.perf_counter() - t:.2f} s")
+    _check(direct.iterations == r.iterations, "direct nested iterations")
+    _check(dxyz <= 1e-6, f"10k CLI vs direct nested xyz {dxyz}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -561,8 +783,32 @@ def main() -> int:
         _say(f"phase nested {route} card-vs-cpu: "
              f"{time.perf_counter() - t:.2f} s")
 
-    # launches: the nested path's warm run (this slice's main path);
-    # the two-level path's and the cold nested run's beside it
+    t = time.perf_counter()
+    os.environ["DTA_PROFILE"] = "1"
+    with tempfile.TemporaryDirectory() as work:
+        clirun = phase_cli(work, flat.iterations)
+    del os.environ["DTA_PROFILE"]
+    _say(f"phase cli: {time.perf_counter() - t:.2f} s; verbs (s): "
+         + json.dumps(clirun["seconds"]))
+
+    # the kernel against its plain version at every shape the CLI routes
+    # launched it at
+    t = time.perf_counter()
+    cli_paths = {}
+    for path, shps in clirun["shapes"].items():
+        for shp in shps:
+            cli_paths.setdefault(shp, []).append(path)
+    kern_cli = {}
+    for shp in sorted(cli_paths):
+        kern_cli[shp] = _hold_kernel(_spd(*shp))[1]
+        torch.cuda.empty_cache()
+    Bd, nd = clirun["dense_shape"]
+    _check((Bd, nd) in kern_cli, "the dense shape was held")
+    _say(f"phase kernel cli shapes {sorted(cli_paths)}: "
+         f"{time.perf_counter() - t:.2f} s")
+
+    # launches: the nested path's warm run; the two-level path's, the
+    # cold nested run's and the CLI routes' beside it
     _say(json.dumps({"kernels": [{
         "name": "chol_inv", "route": "cuda",
         "source": "dynadjust_tpu_torch/csrc/chol_inv.cu",
@@ -570,8 +816,12 @@ def main() -> int:
         "launches": launches_nested[1],
         "launches_by_path": {"two_level": launches_flat,
                              "nested_cold": launches_nested[0],
-                             "nested_warm": launches_nested[1]},
-        **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2}}]}))
+                             "nested_warm": launches_nested[1],
+                             **clirun["launches"]},
+        **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
+        "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
+        "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],
+                 **kern_cli[(b, n)]} for b, n in sorted(kern_cli)]}]}))
     _say(card_line())
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

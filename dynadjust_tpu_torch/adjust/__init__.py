@@ -1,2 +1,2 @@
 from .options import AdjustmentOptions
-from .simultaneous import AdjustmentResult
+from .simultaneous import adjust_simultaneous, AdjustmentResult

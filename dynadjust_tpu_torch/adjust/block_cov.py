@@ -45,9 +45,25 @@ class BlockCovProvider:
         covariances for it instead of crashing)."""
         return self._primary.get(int(g))
 
+    def __getstate__(self):
+        """Pickle the block layout only: the compute closure holds the
+        adjustment's factors (device memory, a local function) and the
+        cache is rebuilt from it.  A provider loaded back knows which
+        stations share a block but raises when asked for a block's
+        covariance."""
+        state = dict(self.__dict__)
+        state["_compute"] = None
+        state["_cache"] = OrderedDict()
+        return state
+
     def block_cov(self, b: int) -> np.ndarray:
         c = self._cache.get(b)
         if c is None:
+            if self._compute is None:
+                raise RuntimeError(
+                    "block covariances are not stored in a saved result "
+                    "past the dense-covariance cap (DTA_DENSE_COV_MAX_STN); "
+                    "run the adjustment again to report them")
             c = self._compute(b)
             self._cache[b] = c
             while len(self._cache) > self._cache_blocks:

@@ -1,1 +1,1 @@
-from .dna import Station, GpsCluster, GpsObs, Measurement, DirectionSet
+from .dna import read_dna_stn, read_dna_msr, Station, GpsCluster, GpsObs, Measurement, DirectionSet

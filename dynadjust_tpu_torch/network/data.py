@@ -111,6 +111,14 @@ def build_network(stations: list, measurements: list, frame: str,
             lat[i], lon[i], hgt[i] = float(la), float(lo), float(h)
             init_h[i] = hgt[i]
             height_ref[i] = ELLIPSOIDAL
+        elif ct == "UTM":
+            from ..geodesy.projections import grid_to_geo
+            zone = int(s.hemi_zone.lstrip("SNsn") or 0)
+            la, lo = grid_to_geo(s.p1, s.p2, zone, ell)
+            lat[i], lon[i] = la, lo
+            hgt[i] = s.p3
+            init_h[i] = s.p3
+            height_ref[i] = ORTHOMETRIC
         else:
             raise ValueError(f"unsupported station coordinate type {ct!r}")
 
@@ -128,6 +136,41 @@ def build_network(stations: list, measurements: list, frame: str,
         measurements=measurements, frame=frame, epoch=epoch, datum=datum,
         station_frames=sframes, station_epochs=sepochs)
 
+
+def normalise_observation_epoch(value: str) -> str:
+    """Normalise a --observation-epoch value to dd.mm.yyyy
+    (dnaimportwrapper.cpp:321-339): 'today' -> today's date; a bare year
+    gains '01.01.'; anything else must parse as dd.mm.yyyy."""
+    import datetime
+    v = (value or "").strip()
+    if not v:
+        return ""
+    if v.lower() == "today":
+        return datetime.date.today().strftime("%d.%m.%Y")
+    if "." not in v:
+        v = "01.01." + v
+    try:
+        datetime.datetime.strptime(v, "%d.%m.%Y")
+    except ValueError:
+        raise ValueError(f"Cannot parse observation epoch '{value}'")
+    return v
+
+
+def apply_observation_epoch(measurements: list, obs_epoch: str) -> int:
+    """Apply the project-level observation epoch to every measurement
+    whose epoch of observation is not explicitly set — empty or equal to
+    the record's reference-frame epoch, the auto-default
+    (ApplyProjectObservationEpoch, dnainterop.cpp:223-265).  Returns the
+    number of records updated."""
+    if not obs_epoch:
+        return 0
+    n = 0
+    for rec in measurements:
+        cur = getattr(rec, "obs_epoch", "")
+        if not cur or cur == getattr(rec, "epoch", ""):
+            rec.obs_epoch = obs_epoch
+            n += 1
+    return n
 
 
 def _record_from_reference(rec):

@@ -229,3 +229,116 @@ def segment_network(net: NetworkData, min_inner_stns: int = 150,
 
     return seg
 
+
+def write_seg_file(path: str, net: NetworkData, seg: Segmentation,
+                   min_inner_stns: int, max_block_stns: int,
+                   starting_stns: str = "", cmdline: str = ""):
+    """Text .seg report (WriteSegFile, include/io/seg_file.cpp:590):
+    header, per-block summary table, and the ISL/JSL/CML name lists."""
+    PAD = 35
+    L = ["-" * 80, "DYNADJUST-TPU SEGMENTATION OUTPUT FILE", "-" * 80, ""]
+    L.append(f"{'File name:':<{PAD}}{path}")
+    L.append("")
+    L.append(f"{'Command line arguments:':<{PAD}}{cmdline}")
+    L.append("")
+    L.append(f"{'Minimum inner stations':<{PAD}}{min_inner_stns}")
+    L.append(f"{'Block size threshold':<{PAD}}{max_block_stns}")
+    if starting_stns:
+        L.append(f"{'Starting station(s)':<{PAD}}{starting_stns}")
+    L.append("-" * 80)
+    L.append("")
+    L.append("SEGMENTATION SUMMARY")
+    L.append("")
+    L.append(f"{'No. blocks produced':<{PAD}}{seg.block_count}")
+    hdr = (f"{'  Block':<10}{'Network ID':<12}{'Junction stns':<15}"
+           f"{'Inner stns':<12}{'Measurements':<14}{'Total stns':<12}")
+    L.append("-" * len(hdr))
+    L.append(hdr)
+    for b in range(seg.block_count):
+        ni = len(seg.inner_stations[b])
+        nj = len(seg.junction_stations[b])
+        L.append(f"  {b + 1:<8}{seg.networks[b]:<12}{nj:<15}{ni:<12}"
+                 f"{len(seg.measurements[b]):<14}{ni + nj:<12}")
+    L.append("")
+    for b in range(seg.block_count):
+        L.append(f"Block {b + 1}")
+        L.append("-" * 80)
+        L.append(f"{'Junction stations':<{PAD}}"
+                 f"{len(seg.junction_stations[b])}")
+        for g in seg.junction_stations[b]:
+            L.append(f"  {net.names[g]}")
+        L.append(f"{'Inner stations':<{PAD}}{len(seg.inner_stations[b])}")
+        for g in seg.inner_stations[b]:
+            L.append(f"  {net.names[g]}")
+        L.append(f"{'Measurements':<{PAD}}{len(seg.measurements[b])}")
+        L.append("")
+    with open(path, "w") as f:
+        f.write("\n".join(L) + "\n")
+
+
+def verify_station_connections(net: NetworkData, seg: Segmentation) -> list:
+    """Every parameter station of every block must be connected to at
+    least one of the block's measurements (VerifyStationConnections,
+    dnasegment.cpp:1426).  Returns problem strings."""
+    problems = []
+    for b in range(seg.block_count):
+        touched = set()
+        for ri in seg.measurements[b]:
+            touched.update(record_stations(net.measurements[ri], net))
+        for g in seg.inner_stations[b]:
+            if g not in touched:
+                problems.append(f"block {b + 1}: inner station "
+                                f"{net.names[g]} has no measurements")
+    return problems
+
+
+def write_sap_file(path: str, net: NetworkData, seg: Segmentation):
+    """Station appearance list: per station, the first block (forward
+    order) and last block (reverse order) in which it appears — the
+    text analogue of the reference's .sap (CreateStnAppearanceList /
+    WriteStnAppearance, include/io/seg_file.hpp:66/85)."""
+    first_fwd = {}
+    first_rev = {}
+    for b in range(seg.block_count):
+        for g in (list(seg.inner_stations[b]) +
+                  list(seg.junction_stations[b])):
+            first_fwd.setdefault(g, b)
+            first_rev[g] = b
+    L = [f"{'Station':<20}{'First appearance (fwd)':>24}"
+         f"{'First appearance (rev)':>24}"]
+    L.append("-" * 68)
+    for g in sorted(first_fwd, key=lambda i: net.names[i]):
+        L.append(f"{net.names[g]:<20}{first_fwd[g] + 1:>24}"
+                 f"{first_rev[g] + 1:>24}")
+    with open(path, "w") as f:
+        f.write("\n".join(L) + "\n")
+
+
+def read_seg_block_names(path: str, block_no: int):
+    """Station names (junction + inner) of one block from a text .seg
+    file (the reverse of write_seg_file's block listings; lets
+    `import --seg-file x.seg --import-block N` consume the text format
+    the reference's tools exchange)."""
+    names = []
+    in_block = False
+    mode = None
+    for line in open(path, errors="replace"):
+        s = line.rstrip("\n")
+        if s.startswith(f"Block {block_no}") and not s.startswith(
+                f"Block {block_no}0"):
+            in_block = True
+            continue
+        if not in_block:
+            continue
+        if s.startswith("Junction stations"):
+            mode = "j"
+            continue
+        if s.startswith("Inner stations"):
+            mode = "i"
+            continue
+        if s.startswith("Measurements") or s.startswith("Block "):
+            break
+        if mode and s.startswith("  ") and s.strip() and \
+                not s.startswith("---"):
+            names.append(s.strip())
+    return names

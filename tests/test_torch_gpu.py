@@ -172,3 +172,35 @@ def test_nested_adjustment_on_card_matches_cpu(cuda, monkeypatch,
     assert abs(g.sigma_zero - c.sigma_zero) < 1e-9
     sc = np.abs(c.cov_stn).max()
     assert np.abs(g.cov_stn - c.cov_stn).max() / sc < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [True, False], ids=["unity", "unscaled"])
+def test_dense_solve_on_card(cuda, scale):
+    """adjust --tpu's dense solve runs the kernel once at (1, n) and
+    reaches the float64 inverse after its Newton steps."""
+    from dynadjust_tpu_torch.parallel.dense_device import dense_solve_device
+    n = 600
+    N = _spd(1, n, 11)[0]
+    d = 10.0 ** np.random.default_rng(12).uniform(-2, 2, n)
+    if scale:
+        N = N * d[:, None] * d[None, :]
+    rhs = np.random.default_rng(13).normal(size=n)
+    before = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    X, dx = dense_solve_device(N, rhs, scale, device="cuda")
+    assert batched_cholesky_inverse.launches == before + 1
+    assert batched_cholesky_inverse.shapes[(1, n)] == shapes.get((1, n),
+                                                                 0) + 1
+    Xref = np.linalg.inv(N)
+    assert np.abs(X - Xref).max() / np.abs(Xref).max() < 1e-10
+    assert np.abs(dx - Xref @ rhs).max() / np.abs(Xref @ rhs).max() < 1e-10
+
+
+@pytest.mark.gpu
+def test_dense_solve_indefinite_raises_on_card(cuda):
+    from dynadjust_tpu_torch.parallel.dense_device import dense_solve_device
+    N = _spd(1, 300, 14)[0]
+    N[7, 7] = -1.0
+    with pytest.raises(torch.linalg.LinAlgError):
+        dense_solve_device(N, np.ones(300), False, device="cuda")

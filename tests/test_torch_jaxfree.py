@@ -5,7 +5,9 @@ of the JAX package (even a numpy-only one) imports jax through
 dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
 chip_smoke, runs a small adjustment on the CPU, and checks that none of
-the three names was loaded; a static check reads every import statement.
+the three names was loaded; another runs `python -m dynadjust_tpu_torch`
+import, segment and adjust --phased --tpu --device cpu under the same
+hook; a static check reads every import statement.
 """
 
 import ast
@@ -76,7 +78,56 @@ def _imports(path: Path):
 def test_no_jax_import_statements():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 25
+    assert PKG / "cli.py" in files and PKG / "__main__.py" in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+_CLI_CHILD = textwrap.dedent("""
+    import runpy, sys
+    FORBIDDEN = {"jax", "jaxlib", "dynadjust_tpu"}
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in FORBIDDEN:
+                raise ImportError(f"refused import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import torch
+    torch.set_num_threads(2)
+    from dynadjust_tpu_torch.io_formats.dna_writer import (
+        write_dna_msr, write_dna_stn)
+    from dynadjust_tpu_torch.utils.synthetic_mixed import (
+        synthetic_mixed_network)
+    net, _ = synthetic_mixed_network(6, 6, block_rows=3, block_cols=3)
+    write_dna_stn("n.stn", net)
+    write_dna_msr("n.msr", net)
+    for verb in (["import", "-n", "n", "n.stn", "n.msr"],
+                 ["segment", "n", "--min-inner-stns", "10",
+                  "--max-block-stns", "20"],
+                 ["adjust", "n", "--phased", "--tpu", "--device", "cpu"]):
+        sys.argv = ["dynadjust_tpu_torch", *verb]
+        try:
+            runpy.run_module("dynadjust_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            assert e.code == 0, (verb, e.code)
+    loaded = sorted(n for n in sys.modules
+                    if n.split(".")[0] in FORBIDDEN)
+    assert not loaded, loaded
+""")
+
+
+def test_cli_runs_without_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    r = subprocess.run([sys.executable, "-c", _CLI_CHILD], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "*** PASSED ***" in r.stdout or "*** WARNING ***" in r.stdout \
+        or "*** FAILED ***" in r.stdout, r.stdout
+    for ext in ("net.pkl", "seg", "sap", "phased.adj", "xyz", "results.pkl"):
+        assert (tmp_path / f"n.{ext}").exists(), ext
