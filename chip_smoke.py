@@ -69,6 +69,35 @@ script exits non-zero without printing a result):
      against the plain version and the library;
  10. one {"kernels": [...]} line, the card line, and the result line.
 
+Host routes (run between phases 7 and 8; each adjustment prints its
+DTA_PROFILE phases, the host residual operator's calls and seconds, the
+device memory peak and the host RSS peak so far):
+
+  staged: the 10,000-station network nested (super_blocks=4, the grid
+     grouping) with staged=True — level-1 factors in page-locked host
+     RAM, streamed through the card in chunks — on both DTA_STREAMED_F64
+     routes; each prints its chunk size C, the kernel's shape and every
+     chunk's upload/compute/download ms, and is held to the resident
+     nested run: same iterations, xyz within 1e-6 m, sigma zero within
+     1e-9, station covariances within 1e-9 relative, refinement
+     residuals l1_err and l3_err < 1e-8;
+  host assembly: the 10,000-station network two-level with
+     DTA_HOST_ASSEMBLY=1 (the host normals, their float32 casts uploaded,
+     the host refinement loop over the host residual operator), held to
+     the device-assembled run likewise;
+  national: 40,000 stations (200 x 200, 36 blocks) two-level in the
+     default environment — its float64 design pool is past
+     DTA_DEVICE_SOLVE_BYTES, so the solve takes the host refinement
+     loop — held likewise to the same network with DTA_DEVICE_SOLVE=1
+     (the device refined solve);
+  cli (in phase 8): --phased --tpu --staged-adjustment
+     --create-stage-files with and without --tpu-super-blocks 2, held
+     also to their resident counterparts (.xyz within 1e-4, saved xyz
+     within 1e-6 m), and the host sequential phased adjustment
+     (--phased, and --staged-adjustment --create-stage-files
+     --purge-stage-files without --tpu), which launch no kernel;
+  and the kernel held at every new (B, n) these routes launched it at.
+
 Needs one card; exits non-zero when torch.cuda.is_available() is false.
 """
 
@@ -80,6 +109,7 @@ import json
 import os
 import pickle
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -99,6 +129,8 @@ from dynadjust_tpu_torch.ops.chol_inv import (batched_cholesky_inverse,
                                               fused_block_reduce)
 from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
                                                        write_dna_stn)
+from dynadjust_tpu_torch.adjust.device_assembly import DeviceAssembly
+from dynadjust_tpu_torch.parallel import schur, streamed
 from dynadjust_tpu_torch.parallel.schur import build_nested_partition
 from dynadjust_tpu_torch.segment import Segmentation
 from dynadjust_tpu_torch.utils.synthetic import grid_super_assignment
@@ -337,22 +369,66 @@ def phase_kernel_level2(SB, ni2, n_real):
     return _hold_kernel(N64)[1]
 
 
+@contextlib.contextmanager
+def _host_route_probes():
+    """Counts and times the float64 host residual operator of the host
+    refinement loops (DeviceAssembly.matvec, schur._block_matvec: one
+    call per refinement round plus one per solve) and keeps every
+    host-streamed factor object built, for the chunk size and the
+    per-chunk copy/compute times.  Measurement only: the operators and
+    factors run unchanged."""
+    info = {"matvec_calls": 0, "matvec_s": 0.0, "streamed": []}
+    orig_da, orig_bm = DeviceAssembly.matvec, schur._block_matvec
+    orig_sf = streamed.StreamedNestedSchurFactors
+
+    def timed(fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            info["matvec_calls"] += 1
+            info["matvec_s"] += time.perf_counter() - t
+            return out
+        return run
+
+    class Recorded(orig_sf):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            info["streamed"].append(self)
+
+    DeviceAssembly.matvec = timed(orig_da)
+    schur._block_matvec = timed(orig_bm)
+    streamed.StreamedNestedSchurFactors = Recorded
+    try:
+        yield info
+    finally:
+        DeviceAssembly.matvec, schur._block_matvec = orig_da, orig_bm
+        streamed.StreamedNestedSchurFactors = orig_sf
+
+
+def _peak_rss_gb() -> float:
+    """Peak resident memory of this process so far (GB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
 def phase_main(rows, cols, tile, label="two-level", **kw):
-    """One adjustment of the 10k network through the entry point, counts
+    """One adjustment of a mixed network through the entry point, counts
     zeroed just before and read just after: (result, launches, launches
-    per (B, n))."""
+    per (B, n), host-route probes).  The device refined solve must end at
+    <= 1e-9 relative residual; the host loops record no residual."""
     os.environ["DTA_PROFILE"] = "1"
     net, seg, truth = synthetic_mixed_network(rows, cols, block_rows=tile,
                                               block_cols=tile, seed=0,
                                               return_truth=True)
     _say(f"{label} path: {net.nstations} stations, "
          f"{len(net.measurements)} records, {seg.block_count} blocks")
+    torch.cuda.reset_peak_memory_stats()
     batched_cholesky_inverse.launches = 0
     batched_cholesky_inverse.shapes = {}
     t0 = time.perf_counter()
-    res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                             device="cuda", **kw)
-    torch.cuda.synchronize()
+    with _host_route_probes() as info:
+        res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                                 device="cuda", **kw)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = batched_cholesky_inverse.launches
     shapes = dict(batched_cholesky_inverse.shapes)
@@ -360,11 +436,13 @@ def phase_main(rows, cols, tile, label="two-level", **kw):
     log = res.iteration_log
     err = float(np.abs(res.xyz - truth).max())
     _say(f"status {res.status}, {res.iterations} iterations, sigma0 "
-         f"{res.sigma_zero:.6f}, wall {wall:.2f} s")
+         f"{res.sigma_zero:.6f}, wall {wall:.2f} s; route "
+         f"{res.profile['route']}")
     for e in log:
+        solve = (f" solve_rel {e['solve_rel']:.3e} solve_rounds "
+                 f"{e['solve_rounds']}" if "solve_rel" in e else "")
         _say(f"  iteration {e['iteration']}: max_corr {e['max_corr']:.3e} "
-             f"elapsed {e['elapsed']:.3f} s solve_rel {e['solve_rel']:.3e} "
-             f"solve_rounds {e['solve_rounds']}")
+             f"elapsed {e['elapsed']:.3f} s{solve}")
     prev = {}
     for e in log:
         ph = e["phases"]
@@ -373,20 +451,110 @@ def phase_main(rows, cols, tile, label="two-level", **kw):
         prev = ph
     _say(f"  stats sub-phases: {res.profile.get('stats_sub')}")
     _say(f"  refine evidence: {res.refine_evidence}")
+    _say(f"  host residual operator: {info['matvec_calls']} calls, "
+         f"{info['matvec_s']:.3f} s; device memory peak "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; host RSS peak "
+         f"so far {_peak_rss_gb():.2f} GB")
     _say(f"first iteration {log[0]['elapsed']:.3f} s, warm (last) "
          f"iteration {log[-1]['elapsed']:.3f} s; max|xyz - truth| "
          f"{err:.4f} m; chol_inv launches {launches} by (B, n) "
          f"{shapes}")
     _check(res.status == "Converged", f"status {res.status}")
-    _check(log[-1]["solve_rel"] <= 1e-9,
-           f"last solve_rel {log[-1]['solve_rel']}")
+    if "solve_rel" in log[-1]:
+        _check(log[-1]["solve_rel"] <= 1e-9,
+               f"last solve_rel {log[-1]['solve_rel']}")
     _check(np.isfinite(res.xyz).all() and np.isfinite(res.cov_stn).all(),
            "finite results")
     err0 = float(np.abs(res.initial_xyz - truth).max())
     _check(err < 0.5 * err0, f"adjusted-vs-truth {err} m against the "
            f"initial {err0} m")
     _check(launches > 0, f"chol_inv launched on the {label} path")
-    return res, launches, shapes
+    info["wall"] = wall
+    return res, launches, shapes, info
+
+
+def _hold_to(res, ref, what, xyz_tol=1e-6):
+    """Gate one adjustment against another of the same network: the same
+    iterations, xyz within xyz_tol m, sigma zero within 1e-9 and station
+    covariances within 1e-9 relative."""
+    dx = float(np.abs(res.xyz - ref.xyz).max())
+    ds = abs(res.sigma_zero - ref.sigma_zero)
+    dc = float(np.abs(res.cov_stn - ref.cov_stn).max()
+               / np.abs(ref.cov_stn).max())
+    _say(f"{what}: {res.iterations} iterations ({ref.iterations}), xyz "
+         f"{dx:.3e} m (<= {xyz_tol:g}), sigma0 {ds:.3e} (<= 1e-9), "
+         f"cov_stn rel {dc:.3e} (<= 1e-9)")
+    _check(res.iterations == ref.iterations, f"{what}: iterations")
+    _check(dx <= xyz_tol and ds <= 1e-9 and dc <= 1e-9, f"{what}: bounds")
+
+
+def phase_national(rows, cols, tile):
+    """The 40,000-station network two-level in the default environment:
+    its float64 design pool is past DTA_DEVICE_SOLVE_BYTES, so the solve
+    takes the host refinement loop; held to the forced device solve
+    (DTA_DEVICE_SOLVE=1) of the same network."""
+    host, l_h, sh_h, info_h = phase_main(rows, cols, tile,
+                                         label="national (host loop)")
+    route = host.profile["route"]
+    budget = 8e9
+    _say(f"national design pool {route['pool_bytes']:.4e} B against "
+         f"DTA_DEVICE_SOLVE_BYTES {budget:.0e}: solve {route['solve']}")
+    _check(route["solve"] == "host loop" and route["pool_bytes"] > budget,
+           f"the national network takes the host loop ({route})")
+    _check(info_h["matvec_calls"] > 0, "the host loop ran its operator")
+    os.environ["DTA_DEVICE_SOLVE"] = "1"
+    try:
+        dev, l_d, sh_d, _ = phase_main(rows, cols, tile,
+                                       label="national (forced device)")
+    finally:
+        del os.environ["DTA_DEVICE_SOLVE"]
+    _check(dev.profile["route"]["solve"] == "device", "forced device")
+    _hold_to(host, dev, "national host loop vs forced device solve")
+    return ({"national_host_loop": l_h, "national_device": l_d},
+            {"national_host_loop": sh_h, "national_device": sh_d})
+
+
+def phase_staged(rows, cols, tile, super_blocks, block_super, nested):
+    """The 10k network nested with staged (host-streamed) factors on both
+    DTA_STREAMED_F64 routes, held to the resident nested run `nested`."""
+    launches, shapes = {}, {}
+    for f64, name in (("1", "staged_f64"), ("0", "staged_two_phase")):
+        os.environ["DTA_STREAMED_F64"] = f64
+        try:
+            res, l, sh, info = phase_main(
+                rows, cols, tile, label=f"staged (DTA_STREAMED_F64={f64})",
+                super_blocks=super_blocks, block_super=block_super,
+                staged=True)
+        finally:
+            del os.environ["DTA_STREAMED_F64"]
+        ev = res.refine_evidence
+        for k, f in enumerate(info["streamed"]):
+            ms = f.chunk_ms
+            _say(f"  staged factor {k + 1}: C {f.C} (kernel at "
+                 f"({f.C}, {f.bs.Nii.shape[1]})), {len(ms)} chunks; per "
+                 f"chunk up/compute/down ms " + ", ".join(
+                     f"{c['up']:.2f}/{c['compute']:.2f}/{c['down']:.2f}"
+                     for c in ms))
+        _check(len(info["streamed"]) == res.iterations,
+               "one streamed factorization per iteration")
+        _check(ev["l1_err"] < 1e-8 and ev["l3_err"] < 1e-8,
+               f"staged refinement residuals {ev}")
+        _hold_to(res, nested, f"{name} vs resident nested")
+        launches[name], shapes[name] = l, sh
+    return launches, shapes
+
+
+def phase_host_assembly(rows, cols, tile, flat):
+    """The 10k network two-level with DTA_HOST_ASSEMBLY=1, held to the
+    device-assembled two-level run `flat`."""
+    os.environ["DTA_HOST_ASSEMBLY"] = "1"
+    try:
+        res, l, sh, _ = phase_main(rows, cols, tile, label="host assembly")
+    finally:
+        del os.environ["DTA_HOST_ASSEMBLY"]
+    _check(res.profile["route"]["assembly"] == "host", "host assembly")
+    _hold_to(res, flat, "host assembly vs device assembly")
+    return {"host_assembly": l}, {"host_assembly": sh}
 
 
 def phase_nested(rows, cols, tile, super_blocks, block_super, flat,
@@ -396,7 +564,7 @@ def phase_nested(rows, cols, tile, super_blocks, block_super, flat,
     runs = []
     for run in ("cold", "warm"):
         t = time.perf_counter()
-        res, launches, shapes = phase_main(
+        res, launches, shapes, _ = phase_main(
             rows, cols, tile, label=f"nested ({run})",
             super_blocks=super_blocks, block_super=block_super)
         _say(f"phase nested {run}: {time.perf_counter() - t:.2f} s")
@@ -415,7 +583,7 @@ def phase_nested(rows, cols, tile, super_blocks, block_super, flat,
                    f"the kernel ran at {shp} once per iteration "
                    f"({shapes})")
         runs.append(launches)
-    return runs
+    return runs, res
 
 
 # (key, trace range, enclosing range or None, part of the split): the
@@ -541,9 +709,19 @@ def phase_card_vs_cpu(label="two-level", **kw):
 
 
 # the port's CLI routes at 1,600 stations: adjust's arguments per route
+_STAGE = ["--staged-adjustment", "--create-stage-files"]
 CLI_ROUTES = {"host": [], "dense": ["--tpu"],
               "phased": ["--phased", "--tpu"],
-              "phased_sb2": ["--phased", "--tpu", "--tpu-super-blocks", "2"]}
+              "phased_sb2": ["--phased", "--tpu", "--tpu-super-blocks", "2"],
+              "staged": ["--phased", "--tpu", *_STAGE],
+              "staged_sb2": ["--phased", "--tpu", *_STAGE,
+                             "--tpu-super-blocks", "2"],
+              "host_phased": ["--phased"],
+              "host_staged": [*_STAGE, "--purge-stage-files"]}
+# routes that run on the host only (no kernel launch)
+CLI_HOST = ("host", "host_phased", "host_staged")
+# staged routes and their resident counterparts
+CLI_RESIDENT = {"staged": "phased", "staged_sb2": "phased_sb2"}
 # sigma zero of the JAX package's CLI on the same 40 x 40 files (CPU)
 CLI_SIGMA0_40 = "0.998"
 _NUM = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
@@ -661,8 +839,8 @@ def phase_cli(work, flat_iterations):
                    f"the dense route launched the kernel once per "
                    f"iteration at one shape ({launches}, {shapes})")
             out["dense_shape"] = next(iter(shapes))
-        elif route == "host":
-            _check(launches == 0, "the host route runs no kernel")
+        elif route in CLI_HOST:
+            _check(launches == 0, f"the {route} route runs no kernel")
         else:
             _check(launches > 0, f"the {route} route launched the kernel")
     host = res["host"]
@@ -680,6 +858,15 @@ def phase_cli(work, flat_iterations):
         _check(f"{r.sigma_zero:.3f}" == CLI_SIGMA0_40
                and r.pass_fail == "PASSED",
                f"{route}: sigma0 {r.sigma_zero:.3f} {r.pass_fail}")
+    for route, resident in CLI_RESIDENT.items():
+        dxyz = float(np.abs(res[route].xyz - res[resident].xyz).max())
+        worst = _files_agree(d / route / "n40.xyz",
+                             d / resident / "n40.xyz", 1e-4)
+        _say(f"cli 40x40 {route} vs {resident}: saved xyz {dxyz:.3e} m "
+             f"(<= 1e-6), .xyz numbers {worst:.1e} (<= 1e-4)")
+        _check(dxyz <= 1e-6, f"{route} xyz vs {resident} {dxyz}")
+    _check(not (d / "host_staged" / "n40.mtx").exists(),
+           "--purge-stage-files removed n40.mtx")
 
     # 10,000 stations through the CLI's own segmentation
     d = Path(work) / "n10k"
@@ -752,7 +939,7 @@ def main() -> int:
     _say(f"phase kernel: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
-    flat, launches_flat, _ = phase_main(rows, cols, tile)
+    flat, launches_flat, _, _ = phase_main(rows, cols, tile)
     _say(f"phase main: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
@@ -768,8 +955,9 @@ def main() -> int:
     _say(f"phase kernel level 2: {time.perf_counter() - t:.2f} s")
 
     nested = dict(super_blocks=super_blocks, block_super=block_super)
-    launches_nested = phase_nested(rows, cols, tile, super_blocks,
-                                   block_super, flat, (B, ni), (SB, ni2))
+    launches_nested, nested_res = phase_nested(
+        rows, cols, tile, super_blocks, block_super, flat, (B, ni),
+        (SB, ni2))
     t = time.perf_counter()
     phase_trace(rows, cols, tile, **nested)
     _say(f"phase nested trace: {time.perf_counter() - t:.2f} s")
@@ -782,6 +970,23 @@ def main() -> int:
         del os.environ["DTA_NESTED_FUSE_BYTES"]
         _say(f"phase nested {route} card-vs-cpu: "
              f"{time.perf_counter() - t:.2f} s")
+
+    # the host routes: staged nested factors, host assembly, and the
+    # national network past the device-solve budget
+    host_launches, host_shapes = {}, {}
+    host_phases = [
+        ("staged", lambda: phase_staged(rows, cols, tile, super_blocks,
+                                        block_super, nested_res)),
+        ("host assembly", lambda: phase_host_assembly(rows, cols, tile,
+                                                      flat)),
+        ("national", lambda: phase_national(200, 200, tile))]
+    for name, run in host_phases:
+        t = time.perf_counter()
+        la, sh = run()
+        host_launches.update(la)
+        host_shapes.update(sh)
+        torch.cuda.empty_cache()
+        _say(f"phase {name}: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     os.environ["DTA_PROFILE"] = "1"
@@ -807,6 +1012,20 @@ def main() -> int:
     _say(f"phase kernel cli shapes {sorted(cli_paths)}: "
          f"{time.perf_counter() - t:.2f} s")
 
+    # ... and at every other shape the host routes launched it at
+    t = time.perf_counter()
+    host_paths = {}
+    for path, shps in host_shapes.items():
+        for shp in shps:
+            host_paths.setdefault(shp, []).append(path)
+    kern_host = {}
+    for shp in sorted(host_paths):
+        if shp != (B, ni) and shp not in kern_cli:
+            kern_host[shp] = _hold_kernel(_spd(*shp))[1]
+            torch.cuda.empty_cache()
+    _say(f"phase kernel host-route shapes {sorted(host_paths)} (held "
+         f"{sorted(kern_host)}): {time.perf_counter() - t:.2f} s")
+
     # launches: the nested path's warm run; the two-level path's, the
     # cold nested run's and the CLI routes' beside it
     _say(json.dumps({"kernels": [{
@@ -817,11 +1036,14 @@ def main() -> int:
         "launches_by_path": {"two_level": launches_flat,
                              "nested_cold": launches_nested[0],
                              "nested_warm": launches_nested[1],
-                             **clirun["launches"]},
+                             **host_launches, **clirun["launches"]},
         **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
         "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],
-                 **kern_cli[(b, n)]} for b, n in sorted(kern_cli)]}]}))
+                 **kern_cli[(b, n)]} for b, n in sorted(kern_cli)],
+        "host_routes": [{"shape": [int(b), int(n)],
+                         "paths": host_paths[(b, n)], **kern_host[(b, n)]}
+                        for b, n in sorted(kern_host)]}]}))
     _say(card_line())
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,12 +21,12 @@ misclosures up and the corrections down.
 
 Port of the JAX package's ``adjust/device_solve.py`` (the float64
 operator branch of ``_make_operator``, ``_refined_loop``, ``_flat_prog``,
-``_nested_prog``, ``DeviceRefinedSolve`` and the unsliced
-``pool_bytes``).  The JAX package sends the solve to a host refinement
-loop when the design pool is past DTA_DEVICE_SOLVE_BYTES or
-DTA_DEVICE_SOLVE=0 is set; that loop is not part of this package, so
-``check_device_solve`` raises there instead.  Reference: the
-per-iteration Solve loop, dnaadjust.cpp:6586.
+``_nested_prog``, ``DeviceRefinedSolve``, the unsliced ``pool_bytes``
+and ``want_device_solve``).  Past the design-pool budget
+(DTA_DEVICE_SOLVE_BYTES) or with DTA_DEVICE_SOLVE=0 the adjustment takes
+the host refinement loop of parallel/schur.py instead, as the JAX
+package does.  Reference: the per-iteration Solve loop,
+dnaadjust.cpp:6586.
 """
 
 from __future__ import annotations
@@ -161,22 +161,15 @@ def pool_bytes(da) -> float:
     return float(da.Bp) * da.M * da.Pp * 8.0
 
 
-def check_device_solve(da):
-    """Raise where the JAX package would leave the device solve for its
-    host refinement loop (``want_device_solve``): DTA_DEVICE_SOLVE=0, or
-    the design pool past DTA_DEVICE_SOLVE_BYTES (8e9) unless
-    DTA_DEVICE_SOLVE=1 forces the device route."""
+def want_device_solve(da) -> bool:
+    """Route the solve through the device refined solve?  DTA_DEVICE_SOLVE
+    1 or 0 forces the answer; otherwise the float64 design pool must fit
+    DTA_DEVICE_SOLVE_BYTES (8e9) alongside the factor pools."""
     v = os.environ.get("DTA_DEVICE_SOLVE", "")
-    if v == "1":
-        return
+    if v in ("0", "1"):
+        return v == "1"
     budget = float(os.environ.get("DTA_DEVICE_SOLVE_BYTES", 8e9))
-    if v == "0" or pool_bytes(da) > budget:
-        why = ("DTA_DEVICE_SOLVE=0" if v == "0" else
-               f"the design pool ({pool_bytes(da):.3e} B) is past "
-               f"DTA_DEVICE_SOLVE_BYTES ({budget:.3e} B)")
-        raise NotImplementedError(
-            f"{why}: the host refinement loop is not ported yet "
-            "(ROADMAP.md, M6)")
+    return pool_bytes(da) <= budget
 
 
 class DeviceRefinedSolve:

@@ -19,10 +19,13 @@ what the reference's phased mode converges to and cross-checks against.
 
 Port of the JAX package's ``adjust/tpu_blocked.py::adjust_tpu_blocked``
 on one device, two-level (``super_blocks=0``) and nested
-(``super_blocks>0``), with device assembly and the device refined solve.
-The JAX package's host-assembly, host-refinement, staged (host-streamed)
-and mesh routes are not part of this package: where the JAX package
-would take one of them, this one raises NotImplementedError.
+(``super_blocks>0``), with its routes: device assembly (default) or host
+assembly (DTA_HOST_ASSEMBLY=1, and always when staged); the device
+refined solve while the float64 design pool fits DTA_DEVICE_SOLVE_BYTES
+(adjust/device_solve.py::want_device_solve), else the host refinement
+loop of parallel/schur.py; resident or host-streamed (staged) nested
+factors.  The JAX package's mesh (multi-device) route is not part of
+this package.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from ..geodesy.local_frame import rotate_cart_local
 from .options import AdjustmentOptions
 from .simultaneous import (AdjustmentResult, _measurement_stats,
                            _critical_value, _chi2_limits, UNRELIABLE)
-from .phased import Block, _first_appearances
+from .phased import Block, _add_constraints, _block_normals, \
+    _first_appearances
 
 
 def _host(x):
@@ -149,6 +153,7 @@ def adjust_tpu_blocked(net: NetworkData,
                        seg_file: str | None = None,
                        seg: Segmentation | None = None,
                        super_blocks: int = 0,
+                       staged: bool = False,
                        block_super: np.ndarray | None = None,
                        device="cuda") -> AdjustmentResult:
     """Blocked Schur adjustment on one device.
@@ -165,23 +170,32 @@ def adjust_tpu_blocked(net: NetworkData,
     super-junction frontier O(sqrt(S)) where contiguous 1D bands make
     nearly every band station a super-junction.
 
+    staged implies host assembly and, on the nested path, stages the
+    level-1 factor pools in host RAM and streams them through the device
+    (parallel/streamed.py) — for networks whose factors exceed device
+    memory.  On the two-level path it changes only the assembly, as in
+    the JAX package.
+
     device: where the normals, factors and solves live — "cuda" (the
     default: the level-1 and level-2 factors are the hand-written
-    kernel) or "cpu" (every kernel's plain PyTorch version)."""
+    kernel) or "cpu" (every kernel's plain PyTorch version).
+
+    With DTA_PROFILE set, result.profile also holds "route": the
+    assembly ("device"/"host"), the solve ("device"/"host loop") and the
+    float64 design pool's bytes (device assembly only)."""
     from ..parallel.schur import (BlockSystem, DeviceSchurFactors,
-                                  NestedSchurFactors,
-                                  build_nested_partition)
+                                  NestedSchurFactors, build_block_system,
+                                  build_nested_partition,
+                                  schur_solve_device_refined,
+                                  schur_solve_nested_factored)
     from .constraint_elim import ConstraintBasis
     from .device_assembly import DeviceAssembly
-    from .device_solve import DeviceRefinedSolve, check_device_solve
+    from .device_solve import (DeviceRefinedSolve, pool_bytes,
+                               want_device_solve)
 
     if block_super is not None and super_blocks == 0:
         raise ValueError("block_super given but super_blocks == 0 — the "
                          "nested path is not active")
-    if os.environ.get("DTA_HOST_ASSEMBLY", "") == "1":
-        raise NotImplementedError(
-            "DTA_HOST_ASSEMBLY=1: host assembly is not ported yet "
-            "(ROADMAP.md, M6)")
     device = torch.device(device)
     opts = options or AdjustmentOptions()
     t0 = time.time()
@@ -222,10 +236,19 @@ def adjust_tpu_blocked(net: NetworkData,
     nested_part = None
 
     # device-side normals formation (AᵀV⁻¹A as batched matmuls,
-    # device_assembly.py) and the refined solve (device_solve.py)
-    da = DeviceAssembly(blocks, part, basis, first_fwd, device=device)
-    check_device_solve(da)
-    dev_solver = DeviceRefinedSolve(da)
+    # device_assembly.py) is the default; DTA_HOST_ASSEMBLY=1 forms them
+    # on the host (numpy).  The streamed (staged) factors slice host
+    # normals per chunk, so staged mode keeps host assembly.
+    device_asm = (not staged
+                  and os.environ.get("DTA_HOST_ASSEMBLY", "") != "1")
+    da = matvec = dev_solver = None
+    if device_asm:
+        da = DeviceAssembly(blocks, part, basis, first_fwd, device=device)
+        matvec = da.matvec
+        # the device refined solve (device_solve.py) while the float64
+        # design pool fits the budget, else the host refinement loop
+        if want_device_solve(da):
+            dev_solver = DeviceRefinedSolve(da)
     prof = ({"setup": 0.0, "fill": 0.0, "normals": 0.0, "rhs": 0.0,
              "build": 0.0, "factor": 0.0, "solve": 0.0, "update": 0.0,
              "stats": 0.0}
@@ -242,6 +265,13 @@ def adjust_tpu_blocked(net: NetworkData,
         if prof is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def _lap(name):
+        nonlocal _t
+        if prof is not None:
+            _sync()
+            prof[name] += time.perf_counter() - _t
+            _t = time.perf_counter()
+
     for _ in range(opts.max_iterations):
         iteration += 1
         _t_iter = time.perf_counter()
@@ -250,24 +280,45 @@ def adjust_tpu_blocked(net: NetworkData,
         _iter_range.__enter__()
         _t = time.perf_counter()
         prev_bs = bs
-        # ONE float64 value upload (scalar tiles only; GPS tiles are
-        # device constants) serves the float32 build (cast on the device)
-        # and the refined solve's residual operator
-        vals_dev, mmc_dev = dev_solver.iteration_inputs()
-        _sync()
-        if prof is not None:
-            prof["rhs"] += time.perf_counter() - _t
-            _t = time.perf_counter()
-        N32 = da.build_device(values=vals_dev)
-        _sync()
-        if prof is not None:
-            prof["normals"] += time.perf_counter() - _t
-            _t = time.perf_counter()
-        bs = BlockSystem(*N32, bi=np.zeros((da.Bp, da.ni)),
-                         bj=np.zeros((da.Bp, da.nj)),
-                         jmap=da.jmap_np, jmask=da.jmask_np,
-                         imask=da.imask_np, nj_global=da.nj_global)
-        del N32
+        if dev_solver is not None:
+            # ONE float64 value upload (scalar tiles only; GPS tiles are
+            # device constants) serves the float32 build (cast on the
+            # device) and the refined solve's residual operator
+            vals_dev, mmc_dev = dev_solver.iteration_inputs()
+            _lap("rhs")
+            N32 = da.build_device(values=vals_dev)
+            _lap("normals")
+            bi = np.zeros((da.Bp, da.ni))
+            bj = np.zeros((da.Bp, da.nj))
+        elif device_asm:
+            N32 = da.build_device()
+            _lap("normals")
+            bi, bj = da.rhs_pools()
+            _lap("rhs")
+        if device_asm:
+            bs = BlockSystem(*N32, bi=bi, bj=bj, jmap=da.jmap_np,
+                             jmask=da.jmask_np, imask=da.imask_np,
+                             nj_global=da.nj_global)
+            del N32
+        else:
+            # host assembly: per-block float64 normals and rhs (numpy),
+            # constraints eliminated, gathered into the padded pools
+            block_N, block_rhs = [], []
+            for b, blk in enumerate(blocks):
+                N, AtVinv = _block_normals(blk)
+                rhs = AtVinv @ blk.asm.mmc
+                _add_constraints(N, blk, first_fwd[b], skip=basis.proj)
+                basis.transform_block(blk.stations, blk.asm.local, N, rhs,
+                                      first_fwd[b])
+                block_N.append(N)
+                block_rhs.append(rhs)
+            _lap("normals")
+            bs = build_block_system(block_N, block_rhs,
+                                    [p[0] for p in part],
+                                    [p[1] for p in part],
+                                    [p[2] for p in part])
+            del block_N, block_rhs
+            _lap("build")
         if prev_bs is not None:
             bs.copy_topology_caches(prev_bs)
         # re-factor when geometry changed (non-GPS present) or first pass
@@ -276,34 +327,58 @@ def adjust_tpu_blocked(net: NetworkData,
         # with constraints eliminated the scaled systems condition at
         # ~1e4-1e6: f32 factorization + f64 residual refinement reaches
         # f64-level solutions
-        if super_blocks > 0 and nested_part is None:
-            nested_part = build_nested_partition(bs, block_super)
-        with record_function("dta.factor"):
-            if factors is None:
-                factors = (NestedSchurFactors(bs, nested_part)
-                           if super_blocks > 0 else DeviceSchurFactors(bs))
-            elif not refactor:
-                factors.bs = bs
-            elif super_blocks > 0:
-                factors.refactor(bs)
-            else:
-                factors.update(bs)
-            _sync()
-        if prof is not None:
-            prof["factor"] += time.perf_counter() - _t
-            _t = time.perf_counter()
+        solve_ev = None
         if super_blocks > 0:
-            xi, xj, solve_ev = dev_solver.solve_nested(factors, vals_dev,
-                                                       mmc_dev)
-            # the nested factors are self-contained: the float32 pools
-            # are rebuilt at the next re-linearisation — free them now
-            bs.Nii = bs.Nij = bs.Njj = None
+            if nested_part is None:
+                nested_part = build_nested_partition(bs, block_super)
+            with record_function("dta.factor"):
+                if not refactor:
+                    factors.bs = bs
+                elif factors is not None and not staged:
+                    # re-linearised normals: refactor in place, reusing
+                    # the resident topology tensors
+                    factors.refactor(bs)
+                else:
+                    # staged factors are rebuilt from the fresh pools
+                    # by the solve (they stream as they factor)
+                    factors = None
+                if factors is None and not staged:
+                    factors = NestedSchurFactors(bs, nested_part,
+                                                 device=device)
+                _sync()
+            _lap("factor")
+            if dev_solver is not None:
+                xi, xj, solve_ev = dev_solver.solve_nested(
+                    factors, vals_dev, mmc_dev)
+            else:
+                xi, xj, factors = schur_solve_nested_factored(
+                    bs, nested_part, factors=factors, streamed=staged,
+                    matvec=matvec, device=device)
+            if device_asm:
+                # the nested factors are self-contained: the float32
+                # pools are rebuilt at the next re-linearisation — free
+                # them now.  Host-loop residuals come from the A-based
+                # host matvec, not these pools.
+                bs.Nii = bs.Nij = bs.Njj = None
         else:
-            xi, xj, solve_ev = dev_solver.solve_flat(factors, vals_dev,
-                                                     mmc_dev)
-        if prof is not None:
-            prof["solve"] += time.perf_counter() - _t
-            _t = time.perf_counter()
+            with record_function("dta.factor"):
+                # device assembly: the f32 pools are already on the
+                # device; host assembly: only their f32 casts go up
+                if factors is None:
+                    factors = DeviceSchurFactors(bs, device=device)
+                elif refactor:
+                    factors.update(bs)
+                else:
+                    factors.bs = bs
+                _sync()
+            _lap("factor")
+            if dev_solver is not None:
+                xi, xj, solve_ev = dev_solver.solve_flat(factors, vals_dev,
+                                                         mmc_dev)
+            else:
+                xi, xj = schur_solve_device_refined(bs, factors,
+                                                    matvec=matvec)
+        _lap("solve")
 
         max_corr = 0.0
         max_stn = 0
@@ -328,12 +403,10 @@ def adjust_tpu_blocked(net: NetworkData,
                  "enu": [float(v) for v in np.ravel(_enu)],
                  "elapsed": time.perf_counter() - _t_iter}
         _iter_range.__exit__(None, None, None)
-        entry.update(solve_ev)      # solve_rel / solve_rounds
+        if solve_ev is not None:
+            entry.update(solve_ev)      # solve_rel / solve_rounds
         it_log.append(entry)
-
-        if prof is not None:
-            prof["update"] += time.perf_counter() - _t
-            _t = time.perf_counter()
+        _lap("update")
         converged = abs(max_corr) <= opts.iteration_threshold
         la, lo, h = cart_to_geo(xyz_all[:, 0], xyz_all[:, 1],
                                 xyz_all[:, 2], net.datum.ellipsoid)
@@ -369,9 +442,12 @@ def adjust_tpu_blocked(net: NetworkData,
     pelzer_sum, pelzer_n = 0.0, 0
     stats_rows = []
     # one-time f64 Newton refinement of the f32 factors for variance
-    # extraction against the float64 pools built once on the device; the
-    # float32 normals pools are no longer needed — free them first
-    bs.Nii = bs.Nij = bs.Njj = None
+    # extraction: device-assembled runs refine against the float64 pools
+    # built once on the device (their float32 pools are no longer needed
+    # — free them first); host-assembled runs against their own float64
+    # host pools
+    if device_asm:
+        bs.Nii = bs.Nij = bs.Njj = None
     if super_blocks == 0:
         factors._N32 = None
     prof_sub = {}
@@ -385,7 +461,7 @@ def adjust_tpu_blocked(net: NetworkData,
             prof_sub[name] = now - _last[0]
             _last[0] = now
 
-    N64 = da.build_f64()
+    N64 = da.build_f64() if device_asm else None
     _subt("stats.f64build")
     if super_blocks == 0:
         cov_factors = factors.newton_factors(N64=N64)
@@ -418,7 +494,7 @@ def adjust_tpu_blocked(net: NetworkData,
     # products (ComputePrecisionAdjMsrs, dnaadjust.cpp:7784).  The
     # dense-covariance route (small networks) keeps the host path, which
     # the full-VCV exports need anyway.
-    use_dev_stats = (cov is None
+    use_dev_stats = (device_asm and cov is None
                      and os.environ.get("DTA_DEVICE_STATS", "1") != "0")
     dev_prec = dev_vcv3 = dev_cov3 = None
     if use_dev_stats:
@@ -456,15 +532,16 @@ def adjust_tpu_blocked(net: NetworkData,
             for g in blk.stations:
                 l = blk.asm.local[g]
                 cov_stn[g] = cov_b[3 * l:3 * l + 3, 3 * l:3 * l + 3]
-            # full within-block covariances into the dense matrix (the
-            # reference's phased mode prints within-block inter-station
-            # covariances; cross-block stay zero)
-            gp = (3 * np.asarray(blk.stations,
-                                 dtype=np.int64)[:, None]
-                  + np.arange(3)).reshape(-1)
-            lp = (3 * np.arange(len(blk.stations))[:, None]
-                  + np.arange(3)).reshape(-1)
-            cov[np.ix_(gp, gp)] = cov_b[np.ix_(lp, lp)]
+            if cov is not None:
+                # full within-block covariances into the dense matrix
+                # (the reference's phased mode prints within-block
+                # inter-station covariances; cross-block stay zero)
+                gp = (3 * np.asarray(blk.stations,
+                                     dtype=np.int64)[:, None]
+                      + np.arange(3)).reshape(-1)
+                lp = (3 * np.arange(len(blk.stations))[:, None]
+                      + np.arange(3)).reshape(-1)
+                cov[np.ix_(gp, gp)] = cov_b[np.ix_(lp, lp)]
         stats_rows.extend(rows)
         chi_sq += c2
         outliers += outl
@@ -517,6 +594,10 @@ def adjust_tpu_blocked(net: NetworkData,
                   "  ".join(f"{k}={v:.3f}" for k, v in prof_sub.items()),
                   file=sys.stderr, flush=True)
         prof["stats_sub"] = dict(prof_sub)
+        prof["route"] = {
+            "assembly": "device" if device_asm else "host",
+            "solve": "device" if dev_solver is not None else "host loop",
+            "pool_bytes": pool_bytes(da) if device_asm else None}
 
     return AdjustmentResult(
         status=status, iterations=iteration, max_corr=float(max_corr),

@@ -5,15 +5,21 @@ Usage:
     python -m dynadjust_tpu_torch segment NAME [--min-inner-stns N]
                                               [--max-block-stns N]
     python -m dynadjust_tpu_torch adjust  NAME [--tpu] [--phased]
+                                              [--block1-phased]
+                                              [--staged-adjustment]
                                               [--tpu-super-blocks N]
                                               [--device cuda|cpu] ...
 
 The verbs take the JAX package's arguments and write the same files
 (``<name>.net.pkl``, ``.seg``, ``.sap``, ``.adj``, ``.xyz``,
 ``.results.pkl``, ...).  ``adjust`` keeps the host float64 LAPACK route
-by default; ``--tpu`` selects the device routes: the dense simultaneous
-solve (parallel/dense_device.py) and, with ``--phased``, the blocked
-Schur adjustment (adjust/tpu_blocked.py).  They run on ``--device``
+by default, and ``--phased``, ``--block1-phased`` or
+``--staged-adjustment`` without ``--tpu`` take the host sequential
+phased adjustment (adjust/phased.py).  ``--tpu`` selects the device
+routes: the dense simultaneous solve (parallel/dense_device.py) and,
+with ``--phased`` or ``--staged-adjustment``, the blocked Schur
+adjustment (adjust/tpu_blocked.py; host-streamed factors when staged).
+They run on ``--device``
 (default ``cuda``); ``adjust --tpu`` exits non-zero when the card it asks
 for is absent.  The host route needs no card and ``--device`` does not
 touch it.  A flag or input whose module this package does not hold yet
@@ -45,12 +51,7 @@ _UNPORTED = {
     ),
     "segment": (),
     "adjust": (
-        ("staged_adjustment", "--staged-adjustment", "M6"),
-        ("create_stage_files", "--create-stage-files", "M6"),
-        ("purge_stage_files", "--purge-stage-files", "M6"),
-        ("stage_path", "--stage-path", "M6"),
         ("devices", "--devices", "M7"),
-        ("block1_phased", "--block1-phased", "M9"),
         ("output_json", "--output-json", "M8"),
         ("export_snx", "--export-snx", "M8"),
         ("export_xml", "--export-xml", "M8"),
@@ -71,10 +72,10 @@ def _refuse_unported(args) -> bool:
     if args.command == "import":
         why += [f"input {f} (ROADMAP.md M8)" for f in args.files
                 if f.endswith(_UNPORTED_INPUTS)]
-    if (args.command == "adjust" and args.phased and not args.tpu
+    if (args.command == "adjust" and args.block1_phased and args.tpu
             and not args.report_mode):
-        why.append("--phased without --tpu: the host sequential phased "
-                   "adjustment (ROADMAP.md M9)")
+        why.append("--block1-phased --tpu: the per-block device solve of "
+                   "the phased sweeps (ROADMAP.md M9)")
     if why:
         print("- Error: not ported to dynadjust_tpu_torch yet: "
               + "; ".join(why), file=sys.stderr)
@@ -602,7 +603,9 @@ def _cmd_adjust(args) -> int:
             return 1
         with open(res_file, "rb") as f:
             res = pickle.load(f)
-    elif args.phased:
+    elif args.phased or args.block1_phased or args.staged_adjustment:
+        # --staged-adjustment implies phased mode (the reference's staged
+        # adjustment is a phased variant, dnaadjustwrapper.cpp)
         seg_file = os.path.join(args.output_folder,
                                 f"{args.network_name}.seg.pkl")
         if not os.path.exists(seg_file):
@@ -616,18 +619,41 @@ def _cmd_adjust(args) -> int:
                   f"{args.network_name}; run segment first",
                   file=sys.stderr)
             return 1
-        # device-native phased: the parallel blocked Schur solve
-        # (two-level, or nested with --tpu-super-blocks) instead of the
-        # sequential forward/reverse/combine sweeps
-        from .adjust.tpu_blocked import adjust_tpu_blocked
-        res = adjust_tpu_blocked(
-            net, opts, seg_file,
-            super_blocks=getattr(args, "tpu_super_blocks", 0),
-            device=args.device)
+        stage_base = args.stage_path or args.output_folder
+        if args.staged_adjustment and not args.create_stage_files and \
+                not os.path.exists(os.path.join(
+                    stage_base, f"{args.network_name}.mtx")):
+            # stage files from a previous run are required unless
+            # --create-stage-files (adjust-no-memmap-02 CI test)
+            print("- Error: no stage (.mtx) files found; rerun with "
+                  "--create-stage-files", file=sys.stderr)
+            return 1
+        if args.tpu and not args.block1_phased:
+            # device-native phased: the parallel blocked Schur solve
+            # (two-level, or nested with --tpu-super-blocks; host-streamed
+            # factors when staged) instead of the sequential
+            # forward/reverse/combine sweeps
+            from .adjust.tpu_blocked import adjust_tpu_blocked
+            res = adjust_tpu_blocked(
+                net, opts, seg_file,
+                super_blocks=getattr(args, "tpu_super_blocks", 0),
+                staged=bool(args.staged_adjustment), device=args.device)
+        else:
+            from .adjust.phased import adjust_phased
+            res = adjust_phased(
+                net, opts, seg_file,
+                stage_dir=stage_base if args.staged_adjustment else None,
+                stage_name=args.network_name, block1=args.block1_phased)
     else:
         res = adjust_simultaneous(net, opts, device=args.device)
     elapsed = time.time() - t0
     _step("adjust")
+
+    if args.purge_stage_files:
+        import shutil
+        shutil.rmtree(os.path.join(args.stage_path or args.output_folder,
+                                   f"{args.network_name}.mtx"),
+                      ignore_errors=True)
 
     if not args.report_mode:
         with open(res_file, "wb") as f:
@@ -641,11 +667,14 @@ def _cmd_adjust(args) -> int:
 
     mode = "phased" if args.phased else "simultaneous"
     base = os.path.join(args.output_folder, args.network_name)
-    suffix = ("phased-mt" if (args.phased and
-                              getattr(args, "multi_thread", False))
+    suffix = ("phased-block1" if args.block1_phased
+              else "phased-mt" if (args.phased and
+                                   getattr(args, "multi_thread", False))
               else "phased" if args.phased else "simult")
     adj_path = f"{base}.{suffix}.adj"
-    mode_text = "sequential phased" if args.phased else "simultaneous"
+    mode_text = ("sequential phased" if (args.phased or args.block1_phased
+                                         or args.staged_adjustment)
+                 else "simultaneous")
     from .project import net_path as _net_path
     _store = _net_path(args.output_folder, args.network_name)
     _step("type_b")

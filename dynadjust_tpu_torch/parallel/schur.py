@@ -16,13 +16,16 @@ Algebraically the simultaneous solution — the cross-check the reference
 relies on — with O(1) batched factorizations instead of the reference's
 sequential forward/reverse block sweeps (dnaadjust.cpp:2756/3461).
 
-Port of the flat subset of the JAX package's ``parallel/schur.py`` on
-one device: factors are float32 explicit inverses (level-1 through the
-Cholesky-inverse kernel, ops/blocked_chol.py), every apply is a matmul,
-and float64 residual refinement (adjust/device_solve.py) restores
-float64 accuracy.  Blocks are padded to uniform shapes: identity padding
-on the diagonal keeps padded factorizations defined and the padded
-entries inert.
+Port of the JAX package's ``parallel/schur.py`` on one device: factors
+are float32 explicit inverses (level-1 through the Cholesky-inverse
+kernel, ops/blocked_chol.py), every apply is a matmul, and float64
+residual refinement restores float64 accuracy — on the device
+(adjust/device_solve.py) or in the host loops of this module
+(schur_solve_device_refined, schur_solve_nested_factored) against the
+host operator _block_matvec or DeviceAssembly.matvec.  Blocks are padded
+to uniform shapes: identity padding on the diagonal keeps padded
+factorizations defined and the padded entries inert.  The host-streamed
+nested factors are in parallel/streamed.py.
 """
 
 from __future__ import annotations
@@ -177,6 +180,30 @@ def _scatter_junction_matrix(S_b, jmap, nj_total):
     return S + torch.diag(torch.where(diag == 0.0, 1.0, 0.0).to(S.dtype))
 
 
+def _block_matvec(bs: BlockSystem, xi, xj):
+    """y = N x for the blocked system, in float64 on the host, from its
+    host (numpy) normals pools.  Junction rows accumulate across blocks
+    (the same scatter structure as the Schur reduction).  The JAX
+    package's native C++ kernel for the block products is not ported:
+    these are numpy matmuls."""
+    xj_pad = np.concatenate([xj, [0.0]])     # scratch slot for padded maps
+    xj_b = xj_pad[bs.jmap] * bs.jmask
+    yi = (np.matmul(bs.Nii, xi[:, :, None])[:, :, 0]
+          + np.matmul(bs.Nij, xj_b[:, :, None])[:, :, 0])
+    yj_b = (np.matmul(xi[:, None, :], bs.Nij)[:, 0, :]
+            + np.matmul(bs.Njj, xj_b[:, :, None])[:, :, 0]) * bs.jmask
+    yj = np.zeros(bs.nj_global + 1)
+    np.add.at(yj, bs.jmap.reshape(-1), yj_b.reshape(-1))
+    return yi * bs.imask, yj[:bs.nj_global]
+
+
+def _gather_rhs_junction(bs: BlockSystem):
+    """(nj_global,) junction rhs summed over the blocks that share it."""
+    t = np.zeros(bs.nj_global + 1)
+    np.add.at(t, bs.jmap.reshape(-1), (bs.bj * bs.jmask).reshape(-1))
+    return t[:bs.nj_global]
+
+
 def _scaled(Nii, Nij, Njj, di, dj):
     """The blocked normals scaled by the unity scale vectors."""
     return (Nii * di[:, :, None] * di[:, None, :],
@@ -327,22 +354,28 @@ def _newton_flat_junction(S_b, jmap, jmask64, Sinv32, nj_total,
 
 class DeviceSchurFactors:
     """Device-resident mixed-precision blocked factors (the JAX package's
-    method 'inv': explicit inverses).
+    method 'inv': explicit inverses, in its device_f64=False mode).
 
-    The blocked system's float32 normals pools are device tensors
-    (adjust/device_assembly.py); the factorization runs in float32 and
-    keeps explicit inverses, so every apply is a matmul.  Float64
-    residuals come from the caller's A-based operator
-    (adjust/device_solve.py)."""
+    The factorization runs in float32 on the device and keeps explicit
+    inverses, so every apply is a matmul.  The float32 pools are a cast
+    of device-assembled normals (adjust/device_assembly.py), or host
+    (numpy) normals cast to float32 on the host and uploaded — no float64
+    normals live on the device.  Float64 residuals come from the caller:
+    the A-based device operator (adjust/device_solve.py) or the host loop
+    (schur_solve_device_refined).
 
-    def __init__(self, bs: BlockSystem):
-        if isinstance(bs.Nii, np.ndarray):
-            raise ValueError("DeviceSchurFactors takes device-assembled "
-                             "normals (torch tensors)")
+    device: where the factors live — the pools' device for tensors, else
+    "cuda"."""
+
+    def __init__(self, bs: BlockSystem, device=None):
         self.bs = bs
         self.nj_total = bs.nj_global + 1
         self.dtype = torch.float32
-        self.device = bs.Nii.device
+        self.B_real = bs.Nii.shape[0]
+        self.device_normals = isinstance(bs.Nii, torch.Tensor)
+        if device is None:
+            device = bs.Nii.device if self.device_normals else "cuda"
+        self.device = torch.device(device)
 
         def put(x, dt):
             return torch.as_tensor(np.asarray(x), dtype=dt,
@@ -351,9 +384,17 @@ class DeviceSchurFactors:
         self.jmap = put(bs.jmap, torch.int64)
         self.jmask32 = put(bs.jmask, self.dtype)
         self.jmask64 = put(bs.jmask, torch.float64)
-        self._N32 = (bs.Nii.to(self.dtype), bs.Nij.to(self.dtype),
-                     bs.Njj.to(self.dtype))
+        self._N32 = self._pools32(bs)
         self.refactor()
+
+    def _pools32(self, bs: BlockSystem):
+        """The float32 normals pools on the device."""
+        if self.device_normals:
+            return tuple(a.to(self.device, self.dtype)
+                         for a in (bs.Nii, bs.Nij, bs.Njj))
+        return tuple(torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                     device=self.device)
+                     for a in (bs.Nii, bs.Nij, bs.Njj))
 
     def update(self, bs: BlockSystem):
         """Re-linearised normals for the same topology: swap the pools and
@@ -361,8 +402,7 @@ class DeviceSchurFactors:
         if tuple(bs.Nii.shape) != tuple(self.bs.Nii.shape):
             raise ValueError("update() requires the same block topology")
         self.bs = bs
-        self._N32 = (bs.Nii.to(self.dtype), bs.Nij.to(self.dtype),
-                     bs.Njj.to(self.dtype))
+        self._N32 = self._pools32(bs)
         self.refactor()
 
     def refactor(self):
@@ -378,10 +418,19 @@ class DeviceSchurFactors:
         return _schur_apply_inv_core(*self.factors, bi, bj, self.jmap,
                                      self.jmask32, self.nj_total)
 
+    def solve(self, bi, bj):
+        """One float32 apply from host rhs pools: (xi (B, ni), xj (njg,))
+        float64 numpy; the float64 refinement is the host loop's
+        (schur_solve_device_refined)."""
+        xi, xj = self.solve_device(bi, bj)
+        return (xi.double().cpu().numpy()[:self.B_real],
+                xj.double().cpu().numpy()[:self.bs.nj_global])
+
     def newton_factors(self, rounds: int = None, N64=None):
         """Float64 Newton-refined covariance factors (one-time, for the
         variance-extraction stage after convergence) against the float64
-        normals pools N64 (DeviceAssembly.build_f64()).
+        normals pools N64 (DeviceAssembly.build_f64()); N64=None takes the
+        host-assembled system's own float64 pools (bs).
 
         Rounds are residual-driven (_newton_loop; evidence stored in
         self.cov_refine_evidence).  The level-1 refinement runs in block
@@ -397,8 +446,13 @@ class DeviceSchurFactors:
         takes both to the float64 floor."""
         rounds, tol = _newton_policy(rounds)
         if N64 is None:
-            raise ValueError("device-assembled normals: pass N64 "
-                             "(DeviceAssembly.build_f64())")
+            if self.device_normals:
+                raise ValueError("device-assembled normals: pass N64 "
+                                 "(DeviceAssembly.build_f64())")
+            # host-assembled: one float64 upload of the host pools
+            N64 = tuple(torch.as_tensor(a, dtype=torch.float64,
+                                        device=self.device)
+                        for a in (self.bs.Nii, self.bs.Nij, self.bs.Njj))
         Ainv, Yf, Sinv, di, dj, djg, _ = self.factors
         B = Ainv.shape[0]
         C = _newton_chunk(B, Ainv.shape[1], N64[2].shape[-1])
@@ -425,6 +479,59 @@ class DeviceSchurFactors:
         Nij_s64 = N64[1] * di.to(f64)[:, :, None] * dj.to(f64)[:, None, :]
         return (A64, Y64, Si64, di.to(f64), dj.to(f64), djg.to(f64),
                 Nij_s64)
+
+
+def _host_residual(bs: BlockSystem, matvec, xi, xj, rhs_j_global,
+                   rhs_scale):
+    """(ri, rj, rel): the float64 residual of (xi, xj) and its relative
+    size against the rhs."""
+    yi, yj = matvec(xi, xj)
+    ri = (bs.bi * bs.imask) - yi
+    rj = rhs_j_global - yj
+    rel = max(float(np.abs(ri).max()), float(np.abs(rj).max())) / rhs_scale
+    return ri, rj, rel
+
+
+def _owned_rhs(bs: BlockSystem, rj):
+    """The junction residual distributed back to block rhs form: the
+    full residual to one owner slot per junction param."""
+    gi, gg = bs.owner_indices()      # cached per topology
+    rj_b = np.zeros_like(bs.bj).reshape(-1)
+    rj_b[gi] = rj[gg]
+    return rj_b.reshape(bs.bj.shape)
+
+
+def schur_solve_device_refined(bs: BlockSystem,
+                               factors: DeviceSchurFactors,
+                               max_refine: int = 12, tol: float = 1e-13,
+                               matvec=None):
+    """Residual-driven mixed-precision solve on float32 device factors.
+
+    Each round applies the factors once on the device; the host measures
+    the true float64 residual and re-applies the factors to it until the
+    relative residual reaches `tol` or stops halving (up to max_refine
+    rounds) — the flat-path counterpart of schur_solve_nested_factored's
+    loop.  matvec: the float64 operator (xi, xj) -> N·x; default the host
+    normals' _block_matvec, or DeviceAssembly.matvec for device-assembled
+    normals.  bs.bi/bs.bj are the host float64 rhs pools."""
+    if matvec is None:
+        def matvec(xi, xj):
+            return _block_matvec(bs, xi, xj)
+    xi, xj = factors.solve(bs.bi, bs.bj)
+    rhs_j_global = _gather_rhs_junction(bs)
+    rhs_scale = max(float(np.abs(bs.bi).max()),
+                    float(np.abs(rhs_j_global).max()), 1e-30)
+    prev_rel = np.inf
+    for _ in range(max_refine):
+        ri, rj, rel = _host_residual(bs, matvec, xi, xj, rhs_j_global,
+                                     rhs_scale)
+        if rel < tol or rel >= 0.5 * prev_rel:
+            break
+        prev_rel = rel
+        di_, dj_ = factors.solve(ri, _owned_rhs(bs, rj))
+        xi = xi + di_
+        xj = xj + dj_
+    return xi, xj
 
 
 # ---------------------------------------------------------------------------
@@ -821,97 +928,57 @@ class NestedSchurFactors:
 
     def newton_refine_cov(self, rounds: int = None, N64=None):
         """One-time float64 Newton refinement of the nested float32
-        factors for the variance-extraction stage: level-1 inverses are
-        refined in block chunks, the level-2 systems are re-assembled in
-        float64 from the refined pieces, and the level-2/3 inverses are
-        refined against them.  Afterwards level1_block / junction_cov
-        return float64-quality covariances.  No-op when the factors are
-        already float64 or refined.
+        factors for the variance-extraction stage (_refine_nested_cov).
+        Afterwards level1_block / junction_cov return float64-quality
+        covariances.  No-op when the factors are already float64 or
+        refined.
 
         N64: (Nii, Nij, Njj) float64 pools — required when the normals
-        were device-assembled in float32 (DeviceAssembly.build_f64()).
-        The refined level-1 pools stay on the device when they fit
-        DTA_COV_DEV_BYTES (4e9), else they go to the host; the level-2/3
-        pools stay on the device.
+        were device-assembled in float32 (DeviceAssembly.build_f64());
+        else the host-assembled system's own pools (bs).  The refined
+        level-1 pools stay on the device when they fit DTA_COV_DEV_BYTES
+        (4e9), else they go to the host; the level-2/3 pools stay on the
+        device.
 
-        Evidence (self.cov_refine_evidence): the worst measured
-        max|I − N·A| at each level, the level-1 rounds, tol, max_rounds
-        and tier.  The tolerance default is the flat path's (1e-12,
+        The tolerance default is the flat path's (1e-12,
         _newton_policy), not the JAX package's resident 3e-9, for the
         same reason: on the 24 x 24 network with super_blocks=2 the
         card's and the CPU's station covariances differ by 1.9e-9
         relative at 3e-9 and by 9.7e-15 at 1e-12 (an H100, tools/
-        nested_newton_tol.py).  tier is the full (8, 8): the products
-        are native float64."""
-        from ..ops.slicegemm import CROSS_MAX, NSLICES, mm64
+        nested_newton_tol.py)."""
         if (self.dtype == torch.float64 or self._cov_l1_h is not None
                 or self._cov_l1_dev is not None):
             return
         rounds, tol = _newton_policy(rounds)
-        bs, part = self.bs, self.part
+        bs = self.bs
         if N64 is None:
             N64 = (bs.Nii, bs.Nij, bs.Njj)
             if not isinstance(bs.Nii, np.ndarray):
                 raise ValueError("device-assembled normals: pass N64 "
                                  "(DeviceAssembly.build_f64())")
-        f64 = torch.float64
-        dev = self.device
-        N64 = [torch.as_tensor(a, device=dev) for a in N64]
+        N64 = [torch.as_tensor(a, device=self.device) for a in N64]
         B, ni = N64[0].shape[:2]
-        njdim = N64[2].shape[1]
+        nj = N64[2].shape[1]
         Ainv, Y, A2inv, Y2, Sinv, di, dj, djg = self.factors
-        keep_dev = (B * ni * (ni + njdim) * 8.0 <=
+        keep_dev = (B * ni * (ni + nj) * 8.0 <=
                     float(os.environ.get("DTA_COV_DEV_BYTES", 4e9)))
-        evid = {"l1_err": 0.0, "l1_rounds": 0, "l2_err": 0.0,
-                "l3_err": 0.0, "tol": tol, "max_rounds": rounds,
-                "tier": [NSLICES, CROSS_MAX]}
-        C = _newton_chunk(B, ni, njdim)
-        jmask64 = self.jmask.to(f64)
-        shapes = ((part.ni2, part.ni2), (part.ni2, part.nj2),
-                  (part.nj2, part.nj2))
-        L2 = [torch.zeros((part.SB, *sh), dtype=f64, device=dev)
-              for sh in shapes]
-        A_parts, Y_parts, l1_ev = [], [], []
-        for k in range(B // C):
-            s = slice(k * C, (k + 1) * C)
-            A_c, Y_c, S_c, k_used, err_c = _newton_l1_chunk(
-                N64[0][s], N64[1][s], N64[2][s], di[s].to(f64),
-                dj[s].to(f64), Ainv[s], rounds, tol)
-            l1_ev.append((k_used, err_c))
+        A_parts, Y_parts = [], []
+
+        def store(s, A_c, Y_c):
             if not keep_dev:
                 A_c, Y_c = A_c.cpu().numpy(), Y_c.cpu().numpy()
             A_parts.append(A_c)
             Y_parts.append(Y_c)
-            L2 = [a + b for a, b in zip(L2, _nested_l2_assemble(
-                S_c, jmask64[s], self.sbb[s], self.l2slot[s], part.SB,
-                part.ni2, part.nj2))]
-            del S_c
-        evid["l1_err"] = max(e for _, e in l1_ev)
-        evid["l1_rounds"] = max(k for k, _ in l1_ev)
+
+        evid, l2 = _refine_nested_cov(
+            self, (B, ni, nj), lambda s: [a[s] for a in N64],
+            lambda s: Ainv[s], di, dj, (A2inv, Sinv), store, rounds, tol)
+        self.cov_refine_evidence, self._l2_dev_refined = evid, l2
         if keep_dev:
             self._cov_l1_dev = (torch.cat(A_parts), torch.cat(Y_parts))
         else:
             self._cov_l1_h = (np.concatenate(A_parts),
                               np.concatenate(Y_parts))
-        del A_parts, Y_parts
-
-        Nii2, Nij2, Njj2 = L2
-        i2m = self._i2mask_dev.to(f64)
-        CS = _newton_chunk(part.SB, part.ni2, part.nj2)
-        l2parts = [_newton_l2_batch(Nii2[k:k + CS], Nij2[k:k + CS],
-                                    i2m[k:k + CS], A2inv[k:k + CS],
-                                    rounds, tol)
-                   for k in range(0, part.SB, CS)]
-        evid["l2_err"] = max(o[3] for o in l2parts)
-        A2d = torch.cat([o[0] for o in l2parts])
-        Y2d = torch.cat([o[1] for o in l2parts])
-        S2_b = torch.cat([o[2] for o in l2parts])
-        del l2parts
-        Sinv64, evid["l3_err"] = _newton_flat_junction(
-            Njj2 + S2_b, self.j2map, self.j2mask.to(f64), Sinv,
-            self.nsj_total, rounds, tol)
-        self.cov_refine_evidence = evid
-        self._l2_dev_refined = (A2d, Y2d, Sinv64)
 
     def cov_l1_host(self):
         """Host view of the refined level-1 pools (downloaded on first
@@ -945,8 +1012,136 @@ class NestedSchurFactors:
         return _np64(self.factors[7])
 
 
+def schur_solve_nested_factored(bs: BlockSystem, part: NestedPartition,
+                                refine: int = 2, dtype=torch.float32,
+                                factors=None, streamed: bool = False,
+                                max_refine: int = 12, matvec=None,
+                                device=None):
+    """Nested mixed-precision solve with factor reuse: one three-level
+    float32 factorization, then float64 host residual refinement over
+    cheap applies.  Pass `factors` back in to skip re-factorizing when
+    the normals are unchanged.  Returns (xi, xj, factors).
+
+    streamed=True stages the level-1 factors in host RAM and streams
+    them through the device per chunk (parallel/streamed.py) — for
+    networks whose factors exceed device memory (the reference's staged
+    .mtx mode, dnaadjust-stage.cpp:59); DTA_STREAMED_F64 (default 1)
+    refines each chunk in float64 as it is factored.
+
+    The refinement is residual-driven: rounds continue until the
+    relative residual is under DTA_SOLVE_RTOL (1e-10) or stops halving,
+    with `refine` rounds at least and DTA_MAX_REFINE (max_refine) at
+    most.  matvec: as schur_solve_device_refined's."""
+    if factors is None:
+        if streamed:
+            from .streamed import StreamedNestedSchurFactors
+            factors = StreamedNestedSchurFactors(
+                bs, part, dtype, device=device,
+                refine_inline=os.environ.get("DTA_STREAMED_F64",
+                                             "1") != "0")
+        else:
+            factors = NestedSchurFactors(bs, part, dtype, device=device)
+    if matvec is None:
+        def matvec(xi, xj):
+            return _block_matvec(bs, xi, xj)
+    xi, xj = factors.solve(bs.bi, bs.bj)
+    rhs_j_global = _gather_rhs_junction(bs)
+    rhs_scale = max(float(np.abs(bs.bi).max()),
+                    float(np.abs(rhs_j_global).max()), 1e-30)
+    max_refine = max(refine, int(os.environ.get("DTA_MAX_REFINE",
+                                                max_refine)))
+    rtol = float(os.environ.get("DTA_SOLVE_RTOL", 1e-10))
+    prev_rel = np.inf
+    for round_no in range(max_refine):
+        ri, rj, rel = _host_residual(bs, matvec, xi, xj, rhs_j_global,
+                                     rhs_scale)
+        if round_no >= refine and (rel < rtol or rel >= 0.5 * prev_rel):
+            break
+        prev_rel = rel
+        di_, dj_ = factors.solve(ri, _owned_rhs(bs, rj))
+        xi = xi + di_
+        xj = xj + dj_
+    return xi, xj, factors
+
+
 def _np64(x):
     return x.detach().cpu().double().numpy()
+
+
+def _refine_nested_cov(f, dims, n64_chunk, ainv_chunk, di, dj, a2_src,
+                       store, rounds, tol):
+    """Float64 Newton refinement of nested float32 factors, shared by the
+    resident (NestedSchurFactors) and the host-streamed
+    (parallel/streamed.py) factors: the level-1 inverses are refined in
+    block chunks, the level-2 systems re-assembled in float64 from the
+    refined pieces, and the level-2/3 inverses refined against them.
+
+    f: the factors (its part, device, nsj_total and the device topology
+    tensors jmask, sbb, l2slot, j2map, j2mask, _i2mask_dev); dims =
+    (B, ni, nj) of the level-1 pools; n64_chunk(s) -> the float64
+    (Nii, Nij, Njj) of the blocks s on the device; ainv_chunk(s) -> their
+    float32 inverses on the device; di, dj: the scale vectors the factors
+    were built with (device tensors); a2_src = (A2inv, Sinv) float32;
+    store(s, A, Y): takes each chunk's refined float64 level-1 pools.
+
+    Returns (evidence, (A2inv, Y2, Sinv) float64 device tensors).  The
+    evidence holds the worst measured max|I − N·A| at each level, the
+    level-1 rounds, tol, max_rounds and tier (the full (8, 8): the
+    products are native float64)."""
+    from ..ops.slicegemm import CROSS_MAX, NSLICES
+    part, dev, f64 = f.part, f.device, torch.float64
+    B, ni, nj = dims
+    evid = {"l1_err": 0.0, "l1_rounds": 0, "l2_err": 0.0,
+            "l3_err": 0.0, "tol": tol, "max_rounds": rounds,
+            "tier": [NSLICES, CROSS_MAX]}
+    C = _newton_chunk(B, ni, nj)
+    jmask64 = f.jmask.to(f64)
+    di, dj = di.to(f64), dj.to(f64)
+    shapes = ((part.ni2, part.ni2), (part.ni2, part.nj2),
+              (part.nj2, part.nj2))
+    L2 = [torch.zeros((part.SB, *sh), dtype=f64, device=dev)
+          for sh in shapes]
+    l1_ev = []
+    for k in range(B // C):
+        s = slice(k * C, (k + 1) * C)
+        A_c, Y_c, S_c, k_used, err_c = _newton_l1_chunk(
+            *n64_chunk(s), di[s], dj[s], ainv_chunk(s), rounds, tol)
+        l1_ev.append((k_used, err_c))
+        store(s, A_c, Y_c)
+        L2 = [a + b for a, b in zip(L2, _nested_l2_assemble(
+            S_c, jmask64[s], f.sbb[s], f.l2slot[s], part.SB,
+            part.ni2, part.nj2))]
+        del A_c, Y_c, S_c
+    evid["l1_err"] = max(e for _, e in l1_ev)
+    evid["l1_rounds"] = max(k for k, _ in l1_ev)
+
+    evid["l2_err"], evid["l3_err"], l2 = _refine_nested_l23(
+        f, L2, *a2_src, rounds, tol)
+    return evid, l2
+
+
+def _refine_nested_l23(f, L2, A2inv, Sinv, rounds, tol):
+    """Float64 Newton refinement of the level-2/3 inverses (float32
+    A2inv, Sinv) against the float64 level-2 assemblies L2 = (Nii2, Nij2,
+    Njj2); f as in _refine_nested_cov.  Returns (l2_err, l3_err,
+    (A2inv, Y2, Sinv) float64 device tensors)."""
+    part, f64 = f.part, torch.float64
+    Nii2, Nij2, Njj2 = L2
+    i2m = f._i2mask_dev.to(f64)
+    CS = _newton_chunk(part.SB, part.ni2, part.nj2)
+    l2parts = [_newton_l2_batch(Nii2[k:k + CS], Nij2[k:k + CS],
+                                i2m[k:k + CS], A2inv[k:k + CS],
+                                rounds, tol)
+               for k in range(0, part.SB, CS)]
+    l2_err = max(o[3] for o in l2parts)
+    A2d = torch.cat([o[0] for o in l2parts])
+    Y2d = torch.cat([o[1] for o in l2parts])
+    S2_b = torch.cat([o[2] for o in l2parts])
+    del l2parts
+    Sinv64, l3_err = _newton_flat_junction(
+        Njj2 + S2_b, f.j2map, f.j2mask.to(f64), Sinv, f.nsj_total,
+        rounds, tol)
+    return l2_err, l3_err, (A2d, Y2d, Sinv64)
 
 
 def _newton_l2_batch(Nii2, Nij2, i2mask, A2inv32, max_rounds, tol):

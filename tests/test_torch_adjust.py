@@ -1,7 +1,8 @@
 """The port's whole blocked adjustment (adjust_tpu_blocked, two-level
-and nested) against the JAX package's on one network, its refusals of
-the routes it does not have, and the port's synthetic network generator
-against the JAX one."""
+and nested) against the JAX package's on one network, on the device
+route and on the host routes (host assembly, the host refinement loop),
+its route rule, and the port's synthetic network generator against the
+JAX one."""
 
 import dataclasses
 from types import SimpleNamespace
@@ -16,8 +17,8 @@ from dynadjust_tpu.adjust.tpu_blocked import \
 from dynadjust_tpu.utils.synthetic_mixed import \
     synthetic_mixed_network as jsynth
 from dynadjust_tpu_torch.adjust import AdjustmentOptions
-from dynadjust_tpu_torch.adjust.device_solve import (check_device_solve,
-                                                     pool_bytes)
+from dynadjust_tpu_torch.adjust.device_solve import (pool_bytes,
+                                                     want_device_solve)
 from dynadjust_tpu_torch.adjust.tpu_blocked import adjust_tpu_blocked
 from dynadjust_tpu_torch.network.data import from_reference
 from dynadjust_tpu_torch.utils.synthetic_mixed import \
@@ -201,34 +202,51 @@ def test_block_super_validation(case):
                                  ("DTA_DEVICE_SOLVE", "0"),
                                  ("DTA_DEVICE_SOLVE_BYTES", "1")],
                          ids=lambda e: e[0])
-def test_host_routes_raise(monkeypatch, env):
-    """Where the JAX package would leave the device route for host
-    assembly or its host refinement loop, the port raises and names the
-    variable and the ROADMAP item that ports the route."""
+def test_host_routes_match_jax(monkeypatch, env):
+    """Where the JAX package leaves the device route for host assembly
+    or its host refinement loop, the port takes the same route and
+    matches it at test_adjustment_matches_jax's bounds (xyz 1e-7 m,
+    sigma zero 1e-9, station covariances 1e-9 relative, the same
+    iterations) and its measurement statistics at
+    test_measurement_stats_match_jax's."""
     monkeypatch.setenv(*env)
-    net, seg = synthetic_mixed_network(8, 8, block_rows=4, block_cols=4)
-    with pytest.raises(NotImplementedError, match=rf"{env[0]}.*M6"):
-        adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
-                           device="cpu")
+    monkeypatch.setenv("DTA_PROFILE", "1")
+    net, seg = jsynth(**NET)
+    ours_net, ours_seg = from_reference(net, seg)
+    ours = adjust_tpu_blocked(ours_net, AdjustmentOptions(), seg=ours_seg,
+                              device="cpu")
+    ref = jax_adjust(net, JA.AdjustmentOptions(), seg=seg)
+    route = ours.profile["route"]
+    assert route["solve"] == "host loop"
+    assert route["assembly"] == ("host" if env[0] == "DTA_HOST_ASSEMBLY"
+                                 else "device")
+    assert all("solve_rel" not in it for it in ours.iteration_log)
+    assert ours.status == ref.status == "Converged"
+    assert ours.iterations == ref.iterations
+    assert np.abs(ours.xyz - ref.xyz).max() < 1e-7
+    assert abs(ours.sigma_zero - ref.sigma_zero) < 1e-9
+    sc = np.abs(ref.cov_stn).max()
+    assert np.abs(ours.cov_stn - ref.cov_stn).max() / sc < 1e-9
+    assert len(ours.msr_stats) == len(ref.msr_stats)
+    for a, b in zip(ours.msr_stats, ref.msr_stats):
+        assert abs(a.adj_prec - b.adj_prec) <= \
+            1e-9 * abs(b.adj_prec) + 1e-18
+        assert abs(a.nstat - b.nstat) <= 1e-6 * abs(b.nstat) + 1e-9
 
 
-def test_device_solve_budget():
-    """The design-pool budget of the JAX package's want_device_solve:
-    the 10k network's pool (9 blocks, 9,413 rows, 3,876 columns) is
-    under the 8e9-byte default, one over it raises, and
-    DTA_DEVICE_SOLVE=1 overrides the budget."""
+def test_device_solve_budget(monkeypatch):
+    """The route rule of the JAX package's want_device_solve: the 10k
+    network's design pool (9 blocks, 9,413 rows, 3,876 columns) is under
+    the 8e9-byte default and goes to the device, 90 such blocks go to the
+    host loop, and DTA_DEVICE_SOLVE=1 and 0 force each route."""
     ten_k = SimpleNamespace(Bp=9, M=9413, Pp=3876)
     assert pool_bytes(ten_k) == 9 * 9413 * 3876 * 8.0
-    check_device_solve(ten_k)
     big = SimpleNamespace(Bp=90, M=9413, Pp=3876)
-    with pytest.raises(NotImplementedError, match="DTA_DEVICE_SOLVE_BYTES"):
-        check_device_solve(big)
-    mp = pytest.MonkeyPatch()
-    try:
-        mp.setenv("DTA_DEVICE_SOLVE", "1")
-        check_device_solve(big)
-    finally:
-        mp.undo()
+    assert want_device_solve(ten_k) and not want_device_solve(big)
+    monkeypatch.setenv("DTA_DEVICE_SOLVE", "1")
+    assert want_device_solve(big)
+    monkeypatch.setenv("DTA_DEVICE_SOLVE", "0")
+    assert not want_device_solve(ten_k)
 
 
 def test_profile_phases(monkeypatch):

@@ -4,13 +4,18 @@ A 10 x 10 synthetic mixed network (seeded) is written as DNA .stn/.msr
 files; both CLIs run in-process, each in its own folder, through
 import -> segment -> adjust on the CPU (the port with --device cpu):
 
-  * the host float64 route (adjust): .adj and .xyz byte-identical below
-    the header (the line "Number of unknown parameters");
+  * the host routes (adjust; the host sequential phased adjustment:
+    --phased, --block1-phased, --staged-adjustment without --tpu): .adj
+    and .xyz byte-identical below the header (the line "Number of
+    unknown parameters");
   * the device routes (adjust --tpu, --phased --tpu, --phased --tpu
-    --tpu-super-blocks 2): printed numbers within 1e-4
+    --tpu-super-blocks 2, and --phased --tpu --staged-adjustment with
+    and without super-blocks): printed numbers within 1e-4
     (dynadjust_tpu.diff.compare_files) and the adjusted xyz of the saved
     results within 1e-7 m;
-  * .seg and .sap identical below their headers.
+  * .seg and .sap identical below their headers;
+  * the stage files: refused when missing without --create-stage-files,
+    written under --stage-path, removed by --purge-stage-files.
 """
 
 import os
@@ -31,12 +36,23 @@ from dynadjust_tpu_torch.cli import main as torch_main
 
 MARKER = "Number of unknown parameters"
 SEGMENT = ["--min-inner-stns", "30", "--max-block-stns", "60"]
+STAGE = ["--staged-adjustment", "--create-stage-files"]
 ROUTES = {
     "host": [],
     "dense-tpu": ["--tpu"],
     "phased-tpu": ["--phased", "--tpu"],
     "phased-tpu-sb2": ["--phased", "--tpu", "--tpu-super-blocks", "2"],
+    "host-phased": ["--phased"],
+    "host-block1": ["--block1-phased"],
+    "host-staged": [*STAGE, "--purge-stage-files"],
+    "staged-tpu": ["--phased", "--tpu", *STAGE],
+    "staged-tpu-sb2": ["--phased", "--tpu", *STAGE,
+                       "--tpu-super-blocks", "2"],
 }
+# the .adj each route writes (the JAX CLI's names: --staged-adjustment
+# alone keeps the simultaneous file name)
+ADJ = {"host": "simult", "dense-tpu": "simult", "host-staged": "simult",
+       "host-block1": "phased-block1"}
 
 
 @pytest.fixture(scope="module")
@@ -87,14 +103,17 @@ def runs(dna_files, tmp_path_factory):
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_adjustment_agrees(runs, route):
     base, rj, rt = runs(route)
-    assert rt.status == rj.status == "Converged"
+    assert rt.status == rj.status
+    if route == "host-block1":
+        assert rt.status.startswith("Estimates solved for Block 1 only")
+    else:
+        assert rt.status == "Converged"
     assert rt.iterations == rj.iterations
     assert rt.pass_fail == rj.pass_fail
     assert abs(rt.sigma_zero - rj.sigma_zero) < 1e-9
     assert np.abs(rt.xyz - rj.xyz).max() < 1e-7
-    suffix = "phased" if "phased" in route else "simult"
-    adj = f"n.{suffix}.adj"
-    if route == "host":
+    adj = f"n.{ADJ.get(route, 'phased')}.adj"
+    if route.startswith("host"):
         for name in (adj, "n.xyz"):
             mark = MARKER if name == adj else "Adjusted Coordinates"
             assert (_below(base / "torch" / name, mark)
@@ -139,3 +158,50 @@ def test_report_mode_rewrites_from_saved_results(runs, tmp_path):
     assert torch_main(["adjust", "n", "--phased", "--tpu", "--report-mode",
                        "--output-folder", str(base)]) == 0
     assert _below(adj, MARKER) == before
+
+
+def test_purge_stage_files(runs):
+    """The staged host route wrote its stage files and
+    --purge-stage-files removed <name>.mtx, in both CLIs."""
+    base = runs("host-staged")[0]
+    for side in ("jax", "torch"):
+        assert (base / side / "n.simult.adj").exists()
+        assert not (base / side / "n.mtx").exists()
+
+
+def test_stage_files_lifecycle(runs, tmp_path, capsys):
+    """--staged-adjustment refuses to run without stage files unless
+    --create-stage-files (exit 1, as the JAX CLI); with it the .mtx files
+    land under --stage-path, a later staged run reuses them, and
+    --purge-stage-files removes them."""
+    work, stage = tmp_path / "w", tmp_path / "stage"
+    shutil.copytree(runs("host-phased")[0] / "torch", work)
+    jwork = tmp_path / "jw"
+    shutil.copytree(runs("host-phased")[0] / "jax", jwork)
+    common = ["--stage-path", str(stage)]
+    capsys.readouterr()
+    assert jax_main(["adjust", "n", "--staged-adjustment", *common,
+                     "--output-folder", str(jwork)]) == 1
+    assert torch_main(["adjust", "n", "--staged-adjustment", *common,
+                       "--output-folder", str(work)]) == 1
+    assert "--create-stage-files" in capsys.readouterr().err
+    assert torch_main(["adjust", "n", *STAGE, *common,
+                       "--output-folder", str(work)]) == 0
+    files = sorted(p.name for p in (stage / "n.mtx").iterdir())
+    assert files and all(f.endswith(".mtx") for f in files)
+    assert not (work / "n.mtx").exists()
+    assert torch_main(["adjust", "n", "--staged-adjustment", *common,
+                       "--purge-stage-files",
+                       "--output-folder", str(work)]) == 0
+    assert not (stage / "n.mtx").exists()
+
+
+def test_staged_with_devices_is_refused(runs, tmp_path, capsys):
+    """--devices is multi-device (ROADMAP.md M7), alone or staged."""
+    work = tmp_path / "w"
+    shutil.copytree(runs("host-phased")[0] / "torch", work)
+    capsys.readouterr()
+    assert torch_main(["adjust", "n", "--phased", "--tpu", *STAGE,
+                       "--devices", "2", "--device", "cpu",
+                       "--output-folder", str(work)]) == 1
+    assert "ROADMAP.md M7" in capsys.readouterr().err

@@ -119,9 +119,8 @@ UNPORTED = {
     "import": [(["--simulate"], "M8"), (["--export-bst-bms"], "M8"),
                (["--export-xml-files"], "M8"),
                (["-d", "disc.snx"], "M8")],
-    "adjust": [(["--phased"], "M9"), (["--block1-phased"], "M9"),
-               (["--phased", "--tpu", "--staged-adjustment"], "M6"),
-               (["--phased", "--tpu", "--devices", "2"], "M7"),
+    "adjust": [(["--phased", "--tpu", "--devices", "2"], "M7"),
+               (["--block1-phased", "--tpu"], "M9"),
                (["--output-json"], "M8"), (["--export-snx"], "M8"),
                (["--export-xml"], "M8")],
 }

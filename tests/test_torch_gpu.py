@@ -175,6 +175,38 @@ def test_nested_adjustment_on_card_matches_cpu(cuda, monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["staged", "host_loop"])
+def test_host_routes_on_card_match_cpu(cuda, monkeypatch, route):
+    """The 24 x 24 network on the card and on the CPU: staged
+    (host-streamed) nested factors with super_blocks=2, and the flat host
+    refinement loop (DTA_DEVICE_SOLVE=0) — the bounds of
+    test_end_to_end_device_vs_host.  The staged route launches the
+    kernel on the card."""
+    kw = {}
+    if route == "staged":
+        kw = dict(staged=True, super_blocks=2)
+    else:
+        monkeypatch.setenv("DTA_DEVICE_SOLVE", "0")
+    out = {}
+    for dev in (cuda, "cpu"):
+        net, seg = synthetic_mixed_network(24, 24, block_rows=12,
+                                           block_cols=12)
+        before = batched_cholesky_inverse.launches
+        out[str(dev)] = adjust_tpu_blocked(net, AdjustmentOptions(),
+                                           seg=seg, device=dev, **kw)
+        launched = batched_cholesky_inverse.launches - before
+        assert (launched > 0) == (str(dev) == "cuda")
+    g, c = out["cuda"], out["cpu"]
+    assert g.status == c.status == "Converged"
+    assert g.iterations == c.iterations
+    assert all("solve_rel" not in it for it in g.iteration_log)
+    assert np.abs(g.xyz - c.xyz).max() < 1e-7
+    assert abs(g.sigma_zero - c.sigma_zero) < 1e-9
+    sc = np.abs(c.cov_stn).max()
+    assert np.abs(g.cov_stn - c.cov_stn).max() / sc < 1e-9
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("scale", [True, False], ids=["unity", "unscaled"])
 def test_dense_solve_on_card(cuda, scale):
     """adjust --tpu's dense solve runs the kernel once at (1, n) and
