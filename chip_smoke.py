@@ -62,12 +62,40 @@ script exits non-zero without printing a result):
      super_blocks=4 (xyz within 1e-6 m); its .results.pkl (past the
      dense-covariance cap) loads back without torch.  Each verb is
      timed, write_adj on its own;
-  9. kernel at every (B, n) that the CLI routes of phase 8 launched it
-     at (the dense (1, 3S), the level-1 blocks of the CLI's segmentation
-     at 1,600 and 10,000 stations, and the level-2 systems of
-     --tpu-super-blocks 2), with the gates of phase 2, each timed
-     against the plain version and the library;
- 10. one {"kernels": [...]} line, the card line, and the result line.
+  9. pipeline: the reftran and geoid stages and the pipeline verb, on
+     DNA files whose stations carry ellipsoidal heights (LLh) and whose
+     level differences are orthometric for a seeded 1' NTv2 grid (N 3-7
+     m, deflections <= 1.5"), written with write_gsb.  1,600 stations
+     verb by verb: import (no -r), reftran -r ITRF2014 -e 01.01.2024
+     (the largest and smallest station shift printed), geoid
+     --convert-stn-hts, segment --min-inner-stns 300 --max-block-stns
+     600, then adjust --output-adj-msr --output-json on the host route
+     and with --export-snx --export-xml too on the --tpu and --phased
+     --tpu routes: each device route within 1e-6 m of the host route's
+     saved xyz, its .xyz and .adj.jsonl numbers within 1e-4 of the host
+     route's and its .adj.jsonl variances within PIPE_COV_TOL m^2 of
+     them, the same iterations, sigma zero 1.000 (the JAX package's
+     CLI on the same files) and PASSED, and the port's diff verb on the
+     .adj files (-t 1e-4 --skip-to-marker "M Station 1") exiting 0; the
+     blocked route's .snx and .adjusted.stn.xml numbers within 1e-4 of
+     the dense route's, the .snx covariances within PIPE_COV_TOL m^2
+     (its covariances of stations in different blocks
+     are 0 by design, and checked to be so); the host route launches no
+     kernel.  10,000 stations through dynadjust alone (-r ITRF2014 -e
+     01.01.2024 -g grid --convert-stn-hts --phased --tpu
+     --min-inner-stns 600 --max-block-stns 1200 --output-json
+     --export-snx): five done stages in dynadjust.log, PASSED, the
+     kernel launched, the same iterations as and xyz within 1e-6 m of
+     adjust_tpu_blocked(super_blocks=4) on the network that the verb's
+     first four stages save (run again with --import --reftran --geoid
+     --segment), and the results pickle loaded with torch classes
+     refused.  Each verb and stage is timed;
+ 10. kernel at every (B, n) that the CLI and pipeline routes of phases 8
+     and 9 launched it at (the dense (1, 3S), the level-1 blocks of the
+     CLI's segmentation at 1,600 and 10,000 stations, and the level-2
+     systems of --tpu-super-blocks 2), with the gates of phase 2, each
+     timed against the plain version and the library;
+ 11. one {"kernels": [...]} line, the card line, and the result line.
 
 Host routes (run between phases 7 and 8; each adjustment prints its
 DTA_PROFILE phases, the host residual operator's calls and seconds, the
@@ -110,6 +138,7 @@ import os
 import pickle
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,6 +164,10 @@ from dynadjust_tpu_torch.parallel.schur import build_nested_partition
 from dynadjust_tpu_torch.segment import Segmentation
 from dynadjust_tpu_torch.utils.synthetic import grid_super_assignment
 from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
+from dynadjust_tpu_torch.utils.synthetic_geoid import (orthometric_levelling,
+                                                       synthetic_geoid_grid)
+from dynadjust_tpu_torch.geoid.gridtools import write_gsb
+from dynadjust_tpu_torch.geodesy.conversions import geo_to_cart
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12          # non-tensor float32
@@ -756,7 +789,10 @@ def _verb_subprocess(folder, *argv):
 
 def _files_agree(a, b, tol):
     """compare_files semantics: lines equal, or the same non-numeric text
-    with every number within tol.  Returns the largest difference."""
+    with every number within tol.  The text is compared as
+    whitespace-split tokens (a fixed-width number's sign moves the spaces
+    beside it), so column alignment is not checked.  Returns the largest
+    difference."""
     la, lb = Path(a).read_text().splitlines(), Path(b).read_text().splitlines()
     _check(len(la) == len(lb), f"{a} and {b} differ in length")
     worst = 0.0
@@ -764,12 +800,98 @@ def _files_agree(a, b, tol):
         if x == y:
             continue
         nx, ny = _NUM.findall(x), _NUM.findall(y)
-        _check(len(nx) == len(ny) and _NUM.sub("#", x) == _NUM.sub("#", y),
+        _check(len(nx) == len(ny) and
+               _NUM.sub("#", x).split() == _NUM.sub("#", y).split(),
                f"{a} vs {b}: {x!r} / {y!r}")
         worst = max([worst] + [abs(float(p) - float(q))
                                for p, q in zip(nx, ny)])
     _check(worst <= tol, f"{a} vs {b}: numbers differ by {worst} > {tol}")
     return worst
+
+
+_COVA = ("+SOLUTION/MATRIX_ESTIMATE L COVA", "-SOLUTION/MATRIX_ESTIMATE L COVA")
+
+
+def _snx_cova(path):
+    """A SINEX file's lines outside its covariance section, and the
+    section's (row, first column, values) with the values (n, 3), NaN
+    where a line holds fewer than three.  The section's lines are fixed
+    width (" %5d %5d" and " % .14E" per value), parsed column-wise."""
+    lines = Path(path).read_text().split("\n")
+    i0, i1 = lines.index(_COVA[0]) + 2, lines.index(_COVA[1])
+    body = np.array(lines[i0:i1], dtype="S")
+    lens = np.char.str_len(body)
+    _check(np.isin(lens, (34, 56, 78)).all(), f"{path}: fixed-width lines")
+    ch = body.view("S1").reshape(len(body), -1)
+
+    def field(rows, a, b, kind):
+        return ch[rows, a:b].copy().view(f"S{b - a}").ravel().astype(kind)
+
+    every = np.ones(len(body), bool)
+    vals = np.full((len(body), 3), np.nan)
+    for j in range(3):
+        has = lens >= 34 + 22 * j
+        vals[has, j] = field(has, 13 + 22 * j, 34 + 22 * j, np.float64)
+    return (lines[:i0] + lines[i1:], field(every, 1, 6, np.int64),
+            field(every, 7, 12, np.int64), vals)
+
+
+def _snx_agree(a, b, tol, cov_tol, share=None):
+    """SINEX files a and b agree: the lines outside the covariance section
+    as _files_agree at tol, the section's rows and columns equal and its
+    values within cov_tol (m^2).  share (S, S): the pairs of stations that
+    share a block, for a blocked route's file a, whose covariances of
+    stations that share no block are 0 by design (the reference's phased
+    mode); those entries must be exactly 0 in a and are not compared.
+    Returns the largest differences outside the section and in it."""
+    ha, ra, ca, va = _snx_cova(a)
+    hb, rb, cb, vb = _snx_cova(b)
+    _check(np.array_equal(ra, rb) and np.array_equal(ca, cb),
+           f"{a} vs {b}: covariance rows and columns")
+    with tempfile.TemporaryDirectory() as t:
+        Path(t, "a").write_text("\n".join(ha))
+        Path(t, "b").write_text("\n".join(hb))
+        worst = _files_agree(Path(t, "a"), Path(t, "b"), tol)
+    real = ~np.isnan(vb)
+    _check(np.array_equal(real, ~np.isnan(va)), f"{a} vs {b}: value counts")
+    keep = real.copy()
+    if share is not None:
+        si = (ra - 1) // 3
+        sj = (ca[:, None] - 1 + np.arange(3)) // 3
+        keep &= share[si[:, None], np.minimum(sj, share.shape[0] - 1)]
+        off = real & ~keep
+        _check(not va[off].any(), f"{a}: covariances of stations that "
+               f"share no block are 0")
+        _say(f"  {a.name}: {int(keep.sum())} covariances compared (largest "
+             f"|value| {np.abs(vb[keep]).max():.3e} m^2), {int(off.sum())} "
+             f"between stations of different blocks are 0")
+    worst_cov = float(np.abs(va - vb)[keep].max(initial=0.0))
+    _check(worst_cov <= cov_tol, f"{a} vs {b}: covariances differ by "
+           f"{worst_cov} > {cov_tol} m^2")
+    return worst, worst_cov
+
+
+def _jsonl_variances(path):
+    """The VarianceCart and VarianceLocal matrices (m^2) of an .adj.jsonl's
+    stations, (S, 2, 3, 3)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            u = json.loads(line).get("DnaStation", {}).get("Uncertainty")
+            if u:
+                out.append([u["VarianceCart"], u["VarianceLocal"]])
+    return np.array(out)
+
+
+def _block_share(folder, name, nstations):
+    """(S, S) bool: the stations that share a block of the saved
+    segmentation."""
+    seg = Segmentation.load(str(Path(folder) / f"{name}.seg.pkl"))
+    share = np.zeros((nstations, nstations), bool)
+    for b in range(seg.block_count):
+        st = np.asarray(seg.parameter_stations(b))
+        share[np.ix_(st, st)] = True
+    return share
 
 
 class _NoTorchUnpickler(pickle.Unpickler):
@@ -917,6 +1039,223 @@ def phase_cli(work, flat_iterations):
     return out
 
 
+# the pipeline phase: one seeded 1' geoid grid for both networks (N 3-7 m,
+# deflections <= 1.5"), the target frame, adjust's outputs (with the
+# adjusted-measurement table, whose header line "M Station 1" the diff
+# marker finds), and the routes at 1,600 stations
+PIPE_GRID = dict(s_lat=-38.0, n_lat=-31.0, w_lon=142.0, e_lon=149.0,
+                 inc_sec=60.0, seed=0)
+PIPE_FRAME = ["-r", "ITRF2014", "-e", "01.01.2024"]
+PIPE_OUT = ["--output-adj-msr", "--output-json"]
+PIPE_EXPORTS = ["--export-snx", "--export-xml"]
+# the host route writes the JSON report only (the script runs past 450 s:
+# the first cut the phase takes); the device routes write every format,
+# and the blocked route's SINEX and DynaML files are held to the dense
+# route's, whose covariance is the full one, as the host route's
+PIPE_ROUTES = {"host": [], "dense": ["--tpu", *PIPE_EXPORTS],
+               "phased": ["--phased", "--tpu", *PIPE_EXPORTS]}
+PIPE_ADJ = {"host": "simult", "dense": "simult", "phased": "phased"}
+# sigma zero of the JAX package's CLI on the same 40 x 40 files (CPU)
+PIPE_SIGMA0_40 = "1.000"
+# covariances (m^2) of the device routes' .adj.jsonl and .snx against the
+# host and dense routes'; the coordinates' 1e-4 would not do, since the
+# variances themselves are of order 1e-4 m^2
+PIPE_COV_TOL = 1e-9
+_STAGE_LINE = re.compile(r"(\w+)\s+done \((\d+\.\d+) s\)")
+
+
+def _pipeline_inputs(d, name, rows, cols, grid):
+    """DNA files of the seeded mixed network, stations written as
+    ellipsoidal heights (LLh) and the level differences made orthometric
+    for the grid's N."""
+    net, _ = synthetic_mixed_network(rows, cols, block_rows=34,
+                                     block_cols=34, seed=0)
+    orthometric_levelling(net, grid)
+    files = [str(d / f"{name}.stn"), str(d / f"{name}.msr")]
+    write_dna_stn(files[0], net, ellipsoidal=True)
+    write_dna_msr(files[1], net)
+    return files
+
+
+def _circles_unoriented(path):
+    """A copy of an .adj.jsonl with the orientation of circular error
+    ellipses set to 0: a constrained station's ellipse is a circle (the
+    host route reports the fixed-station sd on each axis, the blocked
+    route zero), and a circle's orientation is undefined.  Returns the
+    copy's path."""
+    out = Path(f"{path}.unoriented")
+    with open(path) as src, open(out, "w") as dst:
+        for line in src:
+            rec = json.loads(line)
+            u = rec.get("DnaStation", {}).get("Uncertainty")
+            if u and u["SemiMajor"] - u["SemiMinor"] <= 1e-12:
+                u["Orientation"] = 0.0
+            dst.write(json.dumps(rec) + "\n")
+    return out
+
+
+def _station_xyz(folder, name):
+    net = project.load_network(str(folder), name)
+    return np.stack(geo_to_cart(net.lat, net.lon, net.height,
+                                net.datum.ellipsoid), axis=-1), net
+
+
+def phase_pipeline(work, sizes=((40, 40), (100, 100)), dev=()):
+    """The pipeline verbs on the card (phase 9): (a) verb by verb at
+    sizes[0], adjust on the host, --tpu and --phased --tpu routes with
+    JSON, SINEX and DynaML output; (b) the dynadjust verb alone at
+    sizes[1] with --phased --tpu.  dev: extra adjust arguments (a CPU
+    trial passes --device cpu)."""
+    device = "cpu" if dev else "cuda"
+    out = {"launches": {}, "seconds": {}, "shapes": {}}
+    work = Path(work)
+    grid = synthetic_geoid_grid(**PIPE_GRID)
+    gsb = str(work / "grid.gsb")
+    write_gsb(grid, gsb)
+    sg = grid.subgrids[0]
+    _say(f"pipeline grid: {sg.nrows} x {sg.ncols} nodes, N "
+         f"{sg.values[..., 0].min():.3f}..{sg.values[..., 0].max():.3f} m, "
+         f"max |deflection| {np.abs(sg.values[..., 1:3]).max():.3f} s, "
+         f"{os.path.getsize(gsb)} bytes")
+
+    # (a) verb by verb
+    (ra, ca), (rb, cb) = sizes
+    d = work / "pa"
+    prep = d / "prep"
+    prep.mkdir(parents=True)
+    files = _pipeline_inputs(d, "pa", ra, ca, grid)
+    secs = {"import": _verb(prep, "import", "-n", "pa", *files)[0]}
+    xyz0, _ = _station_xyz(prep, "pa")
+    secs["reftran"], rt_out = _verb(prep, "reftran", "pa", *PIPE_FRAME)
+    xyz1, net1 = _station_xyz(prep, "pa")
+    shift = np.linalg.norm(xyz1 - xyz0, axis=1)
+    _say(f"pipeline a reftran: {rt_out.strip().splitlines()[-1]}; station "
+         f"shift largest {shift.max():.4f} m, smallest {shift.min():.4f} m")
+    _check(net1.frame == "ITRF2014" and shift.min() > 0.0,
+           "reftran moved every station to ITRF2014")
+    secs["geoid"], g_out = _verb(prep, "geoid", "pa", "-g", gsb,
+                                 "--convert-stn-hts")
+    net2 = project.load_network(str(prep), "pa")
+    _check(net2.geoid_applied and 3.0 <= net2.geoid_sep.min()
+           and net2.geoid_sep.max() <= 7.0, "geoid N on every station")
+    secs["segment"] = _verb(prep, "segment", "pa", "--min-inner-stns",
+                            "300", "--max-block-stns", "600")[0]
+    res = {}
+    for route, extra in PIPE_ROUTES.items():
+        f = d / route
+        shutil.copytree(prep, f)
+        r, t, steps, launches, shapes, summary = _cli_adjust(
+            f, "pa", [*extra, *PIPE_OUT, *dev])
+        res[route] = r
+        out["launches"][f"pipeline_{route}"] = launches
+        out["shapes"][f"pipeline_{route}"] = list(shapes)
+        secs[f"adjust {route}"] = t
+        secs[f"adjust {route} steps"] = steps
+        _say(f"pipeline a {route}: adjust {t:.2f} s (steps {steps}); "
+             f"{' | '.join(summary)}; chol_inv launches {launches} "
+             f"{shapes}")
+        if route == "host":
+            _check(launches == 0, "the host route runs no kernel")
+        elif device == "cuda":
+            _check(launches > 0, f"the {route} route launched the kernel")
+    out["seconds"][f"{ra}x{ca} verbs"] = secs
+    host = res["host"]
+    hf, df = d / "host", d / "dense"
+    for route, r in res.items():
+        f = d / route
+        dxyz = float(np.abs(r.xyz - host.xyz).max())
+        worst = {"pa.xyz": _files_agree(f / "pa.xyz", hf / "pa.xyz", 1e-4),
+                 "pa.adj.jsonl": _files_agree(
+                     _circles_unoriented(f / "pa.adj.jsonl"),
+                     _circles_unoriented(hf / "pa.adj.jsonl"), 1e-4)}
+        var, hvar = (_jsonl_variances(x / "pa.adj.jsonl") for x in (f, hf))
+        _check(var.shape == hvar.shape, f"{route} .adj.jsonl stations")
+        cov = {"pa.adj.jsonl": float(np.abs(var - hvar).max())}
+        if route == "phased":
+            worst["pa.adjusted.stn.xml (dense)"] = _files_agree(
+                f / "pa.adjusted.stn.xml", df / "pa.adjusted.stn.xml", 1e-4)
+            worst["pa.snx (dense)"], cov["pa.snx (dense)"] = _snx_agree(
+                f / "pa.snx", df / "pa.snx", 1e-4, PIPE_COV_TOL,
+                _block_share(f, "pa", len(r.xyz)))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["diff", str(hf / "pa.simult.adj"),
+                           str(f / f"pa.{PIPE_ADJ[route]}.adj"), "-t",
+                           "1e-4", "--skip-to-marker", "M Station 1"])
+        _say(f"pipeline a {route} vs host: {r.iterations} iterations "
+             f"(host {host.iterations}), sigma0 {r.sigma_zero:.3f} "
+             f"{r.pass_fail}, saved xyz {dxyz:.3e} m (<= 1e-6), numbers "
+             f"(<= 1e-4) {worst}, covariances (<= {PIPE_COV_TOL} m^2) "
+             f"{cov}, largest variance {hvar.max():.3e} m^2, diff -t 1e-4 "
+             f"exit {rc}")
+        _check(r.status == "Converged", f"{route}: {r.status}")
+        _check(cov["pa.adj.jsonl"] <= PIPE_COV_TOL,
+               f"{route} .adj.jsonl variances vs host {cov}")
+        _check(r.iterations == host.iterations, f"{route} iterations")
+        _check(dxyz <= 1e-6, f"{route} xyz vs host {dxyz}")
+        _check(f"{r.sigma_zero:.3f}" == PIPE_SIGMA0_40
+               and r.pass_fail == "PASSED",
+               f"{route}: sigma0 {r.sigma_zero:.3f} {r.pass_fail}")
+        _check(rc == 0, f"diff of the {route} .adj:\n{buf.getvalue()[-2000:]}")
+
+    # (b) the dynadjust verb alone
+    d = work / "pb"
+    d.mkdir()
+    files = _pipeline_inputs(d, "pb", rb, cb, grid)
+    batched_cholesky_inverse.launches = 0
+    batched_cholesky_inverse.shapes = {}
+    t, dyn_out = _verb(d, "dynadjust", "-n", "pb", *files, *PIPE_FRAME,
+                       "-g", gsb, "--convert-stn-hts", "--phased", "--tpu",
+                       "--min-inner-stns", "600", "--max-block-stns", "1200",
+                       "--output-json", "--export-snx", *dev)
+    launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    out["launches"]["pipeline_dynadjust"] = launches
+    out["shapes"]["pipeline_dynadjust"] = list(shapes)
+    stages = _STAGE_LINE.findall((d / "dynadjust.log").read_text())
+    times = re.search(r"Times \(s\): (.*)", dyn_out).group(1).split()
+    steps = {k: float(v) for k, v in zip(times[::2], times[1::2])}
+    out["seconds"][f"{rb}x{cb} dynadjust"] = {
+        "verb": t, **{k: float(v) for k, v in stages},
+        "adjust_steps": steps}
+    with open(d / "pb.results.pkl", "rb") as fh:
+        r = _NoTorchUnpickler(fh).load()
+    _say(f"pipeline b dynadjust: {t:.2f} s, stages {stages}; adjust steps "
+         f"{steps}; {r.status} in {r.iterations} iterations, sigma0 "
+         f"{r.sigma_zero:.3f} {r.pass_fail}; chol_inv launches {launches} "
+         f"{shapes}; .snx {os.path.getsize(d / 'pb.snx')} bytes, "
+         f".adj.jsonl {os.path.getsize(d / 'pb.adj.jsonl')} bytes")
+    _check([k for k, _ in stages] == ["import", "reftran", "geoid",
+                                      "segment", "adjust"],
+           f"dynadjust.log holds five done stages: {stages}")
+    _check(r.status == "Converged" and r.pass_fail == "PASSED",
+           f"10k pipeline: {r.status} {r.pass_fail}")
+    _check(launches > 0 or device != "cuda",
+           "the pipeline launched the kernel")
+    # the network the pipeline saved before its adjust stage (the stage
+    # saves the adjusted one over it): the first four stages again, by
+    # the verb's program switches, in a folder of their own
+    t = time.perf_counter()
+    pre = d / "stages"
+    pre.mkdir()
+    _verb(pre, "dynadjust", "-n", "pb", *files, *PIPE_FRAME, "-g", gsb,
+          "--convert-stn-hts", "--import", "--reftran", "--geoid",
+          "--segment", "--min-inner-stns", "600", "--max-block-stns",
+          "1200")
+    net_saved = project.load_network(str(pre), "pb")
+    seg = Segmentation.load(str(pre / "pb.seg.pkl"))
+    direct = adjust_tpu_blocked(net_saved, AdjustmentOptions(), seg=seg,
+                                super_blocks=4, device=device)
+    dxyz = float(np.abs(r.xyz - direct.xyz).max())
+    _say(f"pipeline b vs adjust_tpu_blocked(super_blocks=4) on the network "
+         f"its first four stages saved: {direct.iterations} iterations "
+         f"({r.iterations}), xyz {dxyz:.3e} m (<= 1e-6), "
+         f"{time.perf_counter() - t:.2f} s")
+    _check(direct.iterations == r.iterations, "direct nested iterations")
+    _check(dxyz <= 1e-6, f"10k pipeline vs direct nested xyz {dxyz}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -996,11 +1335,18 @@ def main() -> int:
     _say(f"phase cli: {time.perf_counter() - t:.2f} s; verbs (s): "
          + json.dumps(clirun["seconds"]))
 
-    # the kernel against its plain version at every shape the CLI routes
-    # launched it at
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        pipe = phase_pipeline(work)
+    torch.cuda.empty_cache()
+    _say(f"phase pipeline: {time.perf_counter() - t:.2f} s; verbs (s): "
+         + json.dumps(pipe["seconds"]))
+
+    # the kernel against its plain version at every shape the CLI and
+    # pipeline routes launched it at
     t = time.perf_counter()
     cli_paths = {}
-    for path, shps in clirun["shapes"].items():
+    for path, shps in {**clirun["shapes"], **pipe["shapes"]}.items():
         for shp in shps:
             cli_paths.setdefault(shp, []).append(path)
     kern_cli = {}
@@ -1036,7 +1382,8 @@ def main() -> int:
         "launches_by_path": {"two_level": launches_flat,
                              "nested_cold": launches_nested[0],
                              "nested_warm": launches_nested[1],
-                             **host_launches, **clirun["launches"]},
+                             **host_launches, **clirun["launches"],
+                             **pipe["launches"]},
         **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
         "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],

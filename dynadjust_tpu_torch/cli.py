@@ -1,7 +1,11 @@
-"""Command-line interface: the pipeline verbs import, segment and adjust.
+"""Command-line interface: the pipeline verbs of DynAdjust (import,
+reftran, geoid, segment, adjust), the one-shot pipeline verb dynadjust,
+and the metadata and diff utilities.
 
 Usage:
     python -m dynadjust_tpu_torch import  -n NAME stations.stn measurements.msr
+    python -m dynadjust_tpu_torch reftran NAME [-r FRAME] [-e EPOCH]
+    python -m dynadjust_tpu_torch geoid   NAME -g grid.gsb [--convert-stn-hts]
     python -m dynadjust_tpu_torch segment NAME [--min-inner-stns N]
                                               [--max-block-stns N]
     python -m dynadjust_tpu_torch adjust  NAME [--tpu] [--phased]
@@ -9,23 +13,30 @@ Usage:
                                               [--staged-adjustment]
                                               [--tpu-super-blocks N]
                                               [--device cuda|cpu] ...
+    python -m dynadjust_tpu_torch dynadjust -n NAME files... [-r FRAME]
+                                              [-g grid.gsb] [adjust flags]
+    python -m dynadjust_tpu_torch metadata NAME
+    python -m dynadjust_tpu_torch diff FILE1 FILE2 [-t TOL]
 
 The verbs take the JAX package's arguments and write the same files
 (``<name>.net.pkl``, ``.seg``, ``.sap``, ``.adj``, ``.xyz``,
-``.results.pkl``, ...).  ``adjust`` keeps the host float64 LAPACK route
-by default, and ``--phased``, ``--block1-phased`` or
-``--staged-adjustment`` without ``--tpu`` take the host sequential
-phased adjustment (adjust/phased.py).  ``--tpu`` selects the device
-routes: the dense simultaneous solve (parallel/dense_device.py) and,
-with ``--phased`` or ``--staged-adjustment``, the blocked Schur
-adjustment (adjust/tpu_blocked.py; host-streamed factors when staged).
-They run on ``--device``
-(default ``cuda``); ``adjust --tpu`` exits non-zero when the card it asks
-for is absent.  The host route needs no card and ``--device`` does not
-touch it.  A flag or input whose module this package does not hold yet
-exits non-zero, naming the ROADMAP.md item that ports it.
+``.results.pkl``, ``.adj.jsonl``, ``.snx``, DynaML ``.xml``, ...).
+``adjust`` keeps the host float64 LAPACK route by default, and
+``--phased``, ``--block1-phased`` or ``--staged-adjustment`` without
+``--tpu`` take the host sequential phased adjustment (adjust/phased.py).
+``--tpu`` selects the device routes: the dense simultaneous solve
+(parallel/dense_device.py) and, with ``--phased`` or
+``--staged-adjustment``, the blocked Schur adjustment
+(adjust/tpu_blocked.py; host-streamed factors when staged).  They run on
+``--device`` (default ``cuda``); ``adjust --tpu`` and ``dynadjust --tpu``
+exit non-zero before their first stage when the card they ask for is
+absent.  The host route needs no card and ``--device`` does not touch
+it.  ``reftran``, ``geoid``, ``metadata`` and ``diff`` are host numpy.
+A flag or input whose module this package does not hold yet exits
+non-zero, naming the ROADMAP.md item that ports it.
 
-Parity reference: per-tool wrappers dna*wrapper/*.cpp of DynAdjust.
+Parity reference: per-tool wrappers dna*wrapper/*.cpp and the dynadjust
+pipeline (dynadjust/dynadjust.cpp:96-427) of DynAdjust.
 """
 
 from __future__ import annotations
@@ -37,42 +48,34 @@ import time
 
 # flags whose modules are not in this package yet: (argument attribute,
 # flag, ROADMAP.md item that ports it)
-_UNPORTED = {
-    "import": (
-        ("discontinuity_file", "-d/--discontinuity-file", "M8"),
-        ("export_discont_file", "--export-discont-file", "M8"),
-        ("export_asl_file", "--export-asl-file", "M8"),
-        ("export_aml_file", "--export-aml-file", "M8"),
-        ("export_map_file", "--export-map-file", "M8"),
-        ("export_xml_files", "--export-xml-files", "M8"),
-        ("single_xml_file", "--single-xml-file", "M8"),
-        ("export_bst_bms", "--export-bst-bms", "M8"),
-        ("simulate", "--simulate", "M8"),
-    ),
-    "segment": (),
-    "adjust": (
-        ("devices", "--devices", "M7"),
-        ("output_json", "--output-json", "M8"),
-        ("export_snx", "--export-snx", "M8"),
-        ("export_xml", "--export-xml", "M8"),
-        ("export_xml_stn_file", "--export-xml-stn-file", "M8"),
-        ("export_xml_msr_file", "--export-xml-msr-file", "M8"),
-    ),
-}
-# input file types whose readers are not ported (ROADMAP.md M8)
-_UNPORTED_INPUTS = (".bst", ".bms", ".jsonl", ".snx", ".SNX", ".xml")
+_UNPORTED = (
+    ("simulate", "--simulate", "M8b"),
+    ("export_bst_bms", "--export-bst-bms", "M8b"),
+    ("devices", "--devices", "M7"),
+)
+# input file types whose readers are not ported (ROADMAP.md M8b)
+_UNPORTED_INPUTS = (".bst", ".bms", ".jsonl")
+
+
+def _unported_input(path) -> str:
+    """The refusal of an input file this package cannot read, or ''."""
+    if path.endswith(_UNPORTED_INPUTS):
+        return f"input {path} (ROADMAP.md M8b)"
+    return ""
 
 
 def _refuse_unported(args) -> bool:
     """Print an error and return True when args ask for a module this
     package does not hold."""
-    why = [f"{flag} (ROADMAP.md {item})"
-           for attr, flag, item in _UNPORTED[args.command]
+    why = [f"{flag} (ROADMAP.md {item})" for attr, flag, item in _UNPORTED
            if getattr(args, attr, None)]
-    if args.command == "import":
-        why += [f"input {f} (ROADMAP.md M8)" for f in args.files
-                if f.endswith(_UNPORTED_INPUTS)]
-    if (args.command == "adjust" and args.block1_phased and args.tpu
+    why += [w for w in map(_unported_input, getattr(args, "files", None)
+                           or []) if w]
+    if args.command == "metadata" and \
+            args.network_name.endswith((".bst", ".bms")):
+        why.append(f"metadata of the binary file {args.network_name} "
+                   f"(ROADMAP.md M8b)")
+    if (getattr(args, "block1_phased", False) and args.tpu
             and not args.report_mode):
         why.append("--block1-phased --tpu: the per-block device solve of "
                    "the phased sweeps (ROADMAP.md M9)")
@@ -82,19 +85,32 @@ def _refuse_unported(args) -> bool:
     return bool(why)
 
 
+def _runs_adjust(args) -> bool:
+    """Whether this verb runs the adjust stage: adjust always; dynadjust
+    unless explicit program switches leave --adjust out."""
+    if args.command == "adjust":
+        return True
+    if args.command != "dynadjust":
+        return False
+    switches = (args.run_import, args.run_reftran, args.run_geoid,
+                args.run_segment, args.run_adjust)
+    return args.run_adjust or not any(switches)
+
+
 def _refuse_missing_card(args) -> bool:
-    """adjust --tpu runs on the card unless --device cpu asks for the CPU:
-    with no card it stops instead of carrying on on the CPU.  The host
-    float64 route (no --tpu) never touches the device and needs no card."""
-    if (args.command != "adjust" or args.report_mode or not args.tpu
+    """adjust --tpu (and dynadjust --tpu) runs on the card unless --device
+    cpu asks for the CPU: with no card it stops before its first stage
+    instead of carrying on on the CPU.  The host float64 route (no --tpu)
+    never touches the device and needs no card."""
+    if (not _runs_adjust(args) or args.report_mode or not args.tpu
             or args.device != "cuda"):
         return False
     import torch
     if torch.cuda.is_available():
         return False
-    print("- Error: adjust --tpu runs on the CUDA card (--device cuda) and "
-          "no card is present; pass --device cpu to run on the CPU",
-          file=sys.stderr)
+    print(f"- Error: {args.command} --tpu runs on the CUDA card (--device "
+          f"cuda) and no card is present; pass --device cpu to run on the "
+          f"CPU", file=sys.stderr)
     return True
 
 
@@ -111,6 +127,13 @@ def _cmd_import(args) -> int:
         args.network_name = f"network{k}"
         print(f"+ Network name defaulted to {args.network_name}")
 
+    disconts = None
+    if getattr(args, "discontinuity_file", ""):
+        from .io_formats.discontinuities import read_discontinuities
+        disconts = read_discontinuities(args.discontinuity_file)
+        nsites = sum(1 for ws in disconts.values() if ws[0].exists)
+        print(f"+ Loaded discontinuity file: {nsites} discontinuity sites")
+
     if getattr(args, "export_from_binary", False):
         # exports from the saved network store, no re-parse
         # (EXPORT_FROM_BINARY; the reference's binary files are our store)
@@ -122,6 +145,18 @@ def _cmd_import(args) -> int:
             write_dna_stn(f"{base}.export.stn", net)
             write_dna_msr(f"{base}.export.msr", net)
             print(f"+ Exported DNA files: {base}.export.stn/.msr")
+        if getattr(args, "export_xml_files", False) or \
+                getattr(args, "single_xml_file", False):
+            from .io_formats.dynaml import (write_dynaml_stn,
+                                            write_dynaml_msr,
+                                            write_dynaml_combined)
+            if getattr(args, "single_xml_file", False):
+                write_dynaml_combined(f"{base}.xml", net)
+                print(f"+ Exported combined DynaML: {base}.xml")
+            else:
+                write_dynaml_stn(f"{base}stn.xml", net)
+                write_dynaml_msr(f"{base}msr.xml", net)
+                print(f"+ Exported DynaML: {base}stn.xml / {base}msr.xml")
         return 0
     # the reference requires files / block / contiguous-network / seg
     # options on the command line itself — a project file alone is
@@ -164,6 +199,24 @@ def _cmd_import(args) -> int:
             measurements.extend(recs)
             frame = frame or mframe
             epoch = epoch or mepoch
+        elif path.endswith((".snx", ".SNX")):
+            from .io_formats.sinex import read_sinex
+            stns, recs, sframe, sepoch = read_sinex(path, disconts=disconts)
+            stations.extend(stns)
+            measurements.extend(recs)
+            frame = frame or sframe
+            epoch = epoch or sepoch
+        elif path.endswith(".xml"):
+            from .io_formats.dynaml import read_dynaml
+            stns, recs, xframe, xepoch = read_dynaml(path)
+            stations.extend(stns)
+            measurements.extend(recs)
+            frame = frame or xframe
+            epoch = epoch or xepoch
+        elif _unported_input(path):
+            print("- Error: not ported to dynadjust_tpu_torch yet: "
+                  + _unported_input(path), file=sys.stderr)
+            return 1
         else:
             print(f"error: unrecognised input file type: {path}",
                   file=sys.stderr)
@@ -232,6 +285,23 @@ def _cmd_import(args) -> int:
                 rec.hscale *= getattr(args, "hscale", 1.0)
                 n += 1
         print(f"+ Applied global VCV scalars to {n} GNSS clusters")
+    discont_pairs = []
+    if disconts:
+        from .io_formats.discontinuities import apply_discontinuities
+        discont_pairs = apply_discontinuities(stations, measurements,
+                                              disconts)
+        if discont_pairs:
+            print(f"+ Applied discontinuities: {len(discont_pairs)} "
+                  f"station renames")
+
+    def _expand_discont(names):
+        # user-supplied station lists name the original sites; add the
+        # discontinuity-renamed variants (BuildExtractStationsList,
+        # dnainterop.cpp:136-172)
+        out = list(names)
+        for nm in names:
+            out.extend(new for old, new in discont_pairs if old == nm)
+        return out
     if getattr(args, "stn_renaming_file", ""):
         from .io_formats.aux_files import read_renaming_file, apply_renaming
         renames = read_renaming_file(args.stn_renaming_file)
@@ -254,8 +324,8 @@ def _cmd_import(args) -> int:
               f"{len(measurements)} measurement records")
     if getattr(args, "include_stns", "") or getattr(args, "exclude_stns", ""):
         from .network.screening import filter_stations
-        inc = [t for t in args.include_stns.split(",") if t]
-        exc = [t for t in args.exclude_stns.split(",") if t]
+        inc = _expand_discont([t for t in args.include_stns.split(",") if t])
+        exc = _expand_discont([t for t in args.exclude_stns.split(",") if t])
         stations, measurements = filter_stations(
             stations, measurements, inc or None, exc or None,
             split_clusters=getattr(args, "split_clusters", False))
@@ -268,8 +338,10 @@ def _cmd_import(args) -> int:
     if (getattr(args, "include_stns_assoc_msrs", "") or
             getattr(args, "exclude_stns_assoc_msrs", "")):
         from .network.screening import filter_stations_assoc_msrs
-        inc = [t for t in args.include_stns_assoc_msrs.split(",") if t]
-        exc = [t for t in args.exclude_stns_assoc_msrs.split(",") if t]
+        inc = _expand_discont(
+            [t for t in args.include_stns_assoc_msrs.split(",") if t])
+        exc = _expand_discont(
+            [t for t in args.exclude_stns_assoc_msrs.split(",") if t])
         stations, measurements = filter_stations_assoc_msrs(
             stations, measurements, inc or None, exc or None,
             split_clusters=getattr(args, "split_clusters", False))
@@ -430,12 +502,43 @@ def _cmd_import(args) -> int:
         n_oe = apply_observation_epoch(net.measurements, oe)
         net.observation_epoch = oe
         print(f"+ Observation epoch {oe} applied to {n_oe} measurements")
+    if getattr(args, "export_asl_file", False) or \
+            getattr(args, "export_aml_file", False) or \
+            getattr(args, "export_map_file", False):
+        from .io_formats import assoc_files
+        base = os.path.join(args.output_folder, args.network_name)
+        if args.export_asl_file:
+            assoc_files.export_asl(f"{base}.asl.txt", net)
+            print(f"+ Exported {base}.asl.txt")
+        if args.export_aml_file:
+            assoc_files.export_aml(f"{base}.aml.txt", net)
+            print(f"+ Exported {base}.aml.txt")
+        if args.export_map_file:
+            assoc_files.export_map(f"{base}.map.txt", net)
+            print(f"+ Exported {base}.map.txt")
     if getattr(args, "export_dna", False):
         from .io_formats.dna_writer import write_dna_stn, write_dna_msr
         base = os.path.join(args.output_folder, args.network_name)
         write_dna_stn(f"{base}.export.stn", net)
         write_dna_msr(f"{base}.export.msr", net)
         print(f"+ Exported DNA files: {base}.export.stn/.msr")
+    if getattr(args, "export_xml_files", False) or \
+            getattr(args, "single_xml_file", False):
+        from .io_formats.dynaml import (write_dynaml_stn, write_dynaml_msr,
+                                        write_dynaml_combined)
+        base = os.path.join(args.output_folder, args.network_name)
+        if getattr(args, "single_xml_file", False):
+            write_dynaml_combined(f"{base}.xml", net)
+            print(f"+ Exported combined DynaML: {base}.xml")
+        else:
+            write_dynaml_stn(f"{base}stn.xml", net)
+            write_dynaml_msr(f"{base}msr.xml", net)
+            print(f"+ Exported DynaML files: {base}stn.xml / {base}msr.xml")
+    if getattr(args, "export_discont_file", "") and disconts:
+        from .io_formats.discontinuities import export_discontinuities
+        base = os.path.join(args.output_folder, args.network_name)
+        export_discontinuities(f"{base}.discont.txt", disconts)
+        print(f"+ Exported discontinuity info: {base}.discont.txt")
     if getattr(args, "output_msr_to_stn", False):
         from .output.adj_writer import msr_to_stn_lines
         sort = {0: "name", 1: "count", 2: "file_order"}.get(
@@ -465,6 +568,204 @@ def _cmd_import(args) -> int:
           f"{len(net.measurements)} measurement records "
           f"({frame} @ {epoch})")
     return 0
+
+
+
+def _cmd_geoid(args) -> int:
+    from .io_formats.ntv2 import NTv2Grid
+    from .geoid import apply_geoid
+    from . import project
+
+    # reference-CLI aliases
+    if args.interpolation_method in ("0", "1"):
+        args.interpolation_method = ("bilinear"
+                                     if args.interpolation_method == "0"
+                                     else "bicubic")
+    if getattr(args, "create_ntv2_flag", False) and not args.create_ntv2:
+        if not getattr(args, "dat_file", ""):
+            print("error: -c requires -d/--dat-file", file=sys.stderr)
+            return 1
+        args.create_ntv2 = args.dat_file
+    if getattr(args, "export_ntv2_asc_flag", False) and \
+            not args.export_ascii_grid:
+        args.export_ascii_grid = args.grid + ".asc"
+    if getattr(args, "export_ntv2_gsb_flag", False) and \
+            not args.export_ntv2_gsb_file:
+        args.export_ntv2_gsb_file = args.grid + ".gsb"
+
+    if getattr(args, "create_ntv2", ""):
+        from .geoid.gridtools import create_ntv2_from_dat, write_gsb
+        grid = create_ntv2_from_dat(
+            args.create_ntv2,
+            uncertainty_path=getattr(args, "dat_uncertainty_file", ""),
+            gs_type=getattr(args, "grid_shift_type", "SECONDS"),
+            version=getattr(args, "grid_version", "1.0.0.0"),
+            system_from=getattr(args, "system_from", "GDA94"),
+            system_to=getattr(args, "system_to", "AHD_1971"),
+            sub_grid_name=getattr(args, "sub_grid_name", "AUSGEOID"),
+            created=getattr(args, "creation_date", ""),
+            updated=getattr(args, "update_date", ""),
+            semi_major_from=getattr(args, "semi_major_from", 6378137.0),
+            semi_minor_from=getattr(args, "semi_minor_from", 6356752.314),
+            semi_major_to=getattr(args, "semi_major_to", 6378137.0),
+            semi_minor_to=getattr(args, "semi_minor_to", 6356752.314))
+        write_gsb(grid, args.grid)
+        print(f"+ Created NTv2 grid {args.grid} from {args.create_ntv2}")
+        return 0
+    if getattr(args, "summary", False):
+        from .geoid.gridtools import grid_summary
+        grid = NTv2Grid.read(args.grid)
+        for line in grid_summary(grid, args.grid):
+            print(line)
+        return 0
+    if getattr(args, "interactive", False):
+        from .geodesy.conversions import dms_to_rad
+        import numpy as _np
+        grid = NTv2Grid.read(args.grid)
+        if not args.latitude or not args.longitude:
+            print("error: --latitude and --longitude required for "
+                  "interactive interpolation", file=sys.stderr)
+            return 1
+        if getattr(args, "decimal_degrees", False):
+            lat = _np.radians(float(args.latitude))
+            lon = _np.radians(float(args.longitude))
+        else:
+            lat = float(dms_to_rad(float(args.latitude)))
+            lon = float(dms_to_rad(float(args.longitude)))
+        vals = grid.interpolate(lat, lon, args.interpolation_method)
+        if vals is None:
+            print("- Error: point is outside the grid", file=sys.stderr)
+            return 1
+        print(f"{'Latitude:':<28}{_np.degrees(lat):.9f}")
+        print(f"{'Longitude:':<28}{_np.degrees(lon):.9f}")
+        print(f"{'N value:':<28}{vals[0]:.3f} m")
+        print(f"{'Deflection (meridian):':<28}{vals[1]:.3f} sec")
+        print(f"{'Deflection (prime vert):':<28}{vals[2]:.3f} sec")
+        return 0
+    if getattr(args, "export_ascii_grid", ""):
+        from .geoid.gridtools import export_ascii
+        grid = NTv2Grid.read(args.grid)
+        export_ascii(grid, args.export_ascii_grid)
+        print(f"+ Exported {args.grid} to {args.export_ascii_grid}")
+        return 0
+    if getattr(args, "export_ntv2_gsb_file", ""):
+        from .geoid.gridtools import write_gsb
+        grid = NTv2Grid.read(args.grid)
+        write_gsb(grid, args.export_ntv2_gsb_file)
+        print(f"+ Exported {args.grid} to {args.export_ntv2_gsb_file}")
+        return 0
+    if getattr(args, "point_file", ""):
+        from .geoid.gridtools import interpolate_point_file
+        grid = NTv2Grid.read(args.grid)
+        out = args.point_file + ".geoid.txt"
+        done, skipped = interpolate_point_file(
+            grid, args.point_file, out, method=args.interpolation_method,
+            convert_heights=True,
+            dms=not getattr(args, "decimal_degrees", False),
+            direction=getattr(args, "direction", 0))
+        print(f"+ Interpolated {done} points ({skipped} skipped) -> {out}")
+        return 0
+    if not args.network_name:
+        print("error: network name required", file=sys.stderr)
+        return 1
+
+    net = project.load_network(getattr(args, 'input_folder', '') or
+                               args.output_folder, args.network_name)
+    grid = NTv2Grid.read(args.grid)
+    n = apply_geoid(net, grid, convert_heights=args.convert_stn_hts,
+                    method=args.interpolation_method)
+    net.geoid_file = args.grid
+    project.save_network(net, args.output_folder, args.network_name)
+    project.update_project(args.output_folder, args.network_name, "geoid",
+                           {"grid": args.grid,
+                            "convert_heights": args.convert_stn_hts})
+    print(f"+ Interpolated geoid components for {n} of "
+          f"{net.nstations} stations")
+    if getattr(args, "export_dna_geo_file", False):
+        from .geoid.gridtools import export_dna_geo
+        base = os.path.join(args.output_folder, args.network_name)
+        export_dna_geo(f"{base}.geo", net)
+        print(f"+ Exported DNA geoid file: {base}.geo")
+    return 0
+
+
+def _cmd_reftran(args) -> int:
+    from .reftran import transform_network
+    from . import project
+
+    plate_model = None
+    if getattr(args, "plate_model_option", 0) == 1 and not \
+            getattr(args, "plate_boundary_file", ""):
+        print("- Error: --plate-model-option 1 requires a plate boundary "
+              "file (-b) and pole file (-m)", file=sys.stderr)
+        return 1
+    for fattr in ("plate_boundary_file", "plate_pole_file"):
+        fp = getattr(args, fattr, "")
+        if fp and not os.path.exists(fp):
+            print(f"- Error: {fp} does not exist", file=sys.stderr)
+            return 1
+    if bool(getattr(args, "plate_boundary_file", "")) != \
+            bool(getattr(args, "plate_pole_file", "")):
+        print("- Error: the plate motion model needs both -b (boundaries)"
+              " and -m (Euler poles)", file=sys.stderr)
+        return 1
+    if getattr(args, "plate_boundary_file", "") and \
+            getattr(args, "plate_pole_file", ""):
+        from .reftran.plates import load_plate_model
+        plate_model = load_plate_model(args.plate_boundary_file,
+                                       args.plate_pole_file)
+        print(f"+ Loaded plate motion model "
+              f"({len(plate_model.polygons)} plates)")
+
+    net = project.load_network(getattr(args, 'input_folder', '') or
+                               args.output_folder, args.network_name)
+    if getattr(args, "override_input_ref_frame", False) and \
+            args.reference_frame:
+        # --override-input-ref-frame: relabel without transformation
+        # (replace the frame recorded from the input files)
+        net.frame = args.reference_frame.upper()
+        if net.station_frames:
+            net.station_frames = [""] * net.nstations
+        print(f"+ Input reference frame overridden to {net.frame}")
+    stats = transform_network(net, args.reference_frame or None,
+                              args.epoch or "", plate_model=plate_model)
+    project.save_network(net, args.output_folder, args.network_name)
+    project.update_project(args.output_folder, args.network_name, "reftran",
+                           {"frame": net.frame, "epoch": net.epoch})
+    print(f"+ Transformed {stats['stations']} stations "
+          f"({stats['stations_skipped']} already on {net.frame}), "
+          f"{stats['measurements']} measurement clusters "
+          f"({stats['measurements_skipped']} skipped)")
+    if getattr(args, "export_dna", False) or \
+            getattr(args, "export_xml", False):
+        # export name: <network>.<frame>[.<epoch>] (epoch only when the
+        # target frame is dynamic), dnareftranwrapper.cpp:255-263
+        from .params.datums import is_dynamic_frame
+        base_name = f"{args.network_name}.{net.frame}"
+        if is_dynamic_frame(net.frame) and net.epoch:
+            base_name += f".{net.epoch}"
+        base = os.path.join(args.output_folder, base_name)
+        if getattr(args, "export_dna", False):
+            from .io_formats.dna_writer import write_dna_stn, write_dna_msr
+            write_dna_stn(f"{base}.stn", net)
+            write_dna_msr(f"{base}.msr", net)
+            print(f"+ Exported stations and measurements to:\n"
+                  f"  - {base}.stn\n  - {base}.msr")
+        if getattr(args, "export_xml", False):
+            from .io_formats.dynaml import (write_dynaml_stn,
+                                            write_dynaml_msr,
+                                            write_dynaml_combined)
+            if getattr(args, "single_xml_file", False):
+                write_dynaml_combined(f"{base}.xml", net)
+                print(f"+ Exported combined DynaML: {base}.xml")
+            else:
+                write_dynaml_stn(f"{base}stn.xml", net)
+                write_dynaml_msr(f"{base}msr.xml", net)
+                print(f"+ Exported stations and measurements to:\n"
+                      f"  - {base}stn.xml\n  - {base}msr.xml")
+    return 0
+
+
 
 
 def _cmd_segment(args) -> int:
@@ -722,6 +1023,28 @@ def _cmd_adjust(args) -> int:
                            else "dms"),
               stn_file_order=getattr(args, "sort_stn_orig_order", False))
     _step("write_xyz")
+    if getattr(args, "output_json", False):
+        from .output.json_writer import write_adj_jsonl
+        from .geodesy.conversions import geo_to_cart as _g2c
+        import numpy as _np
+        if getattr(res, "initial_xyz", None) is not None:
+            _oxyz = res.initial_xyz
+        else:
+            ox, oy, oz = _g2c(net.lat, net.lon, net.height,
+                              net.datum.ellipsoid)
+            _oxyz = _np.stack([ox, oy, oz], axis=-1)
+        n = write_adj_jsonl(f"{base}.adj.jsonl", net, res, _oxyz)
+        print(f"+ Wrote {base}.adj.jsonl ({n} records)")
+        from .output.json_writer import write_xyz_jsonl
+        write_xyz_jsonl(f"{base}.xyz.jsonl", net, res)
+        if args.output_pos_uncertainty:
+            from .output.json_writer import write_apu_jsonl
+            write_apu_jsonl(f"{base}.apu.jsonl", net, res,
+                            opts.confidence_interval)
+        if args.output_corrections_file:
+            from .output.json_writer import write_cor_jsonl
+            write_cor_jsonl(f"{base}.cor.jsonl", net, res, _oxyz)
+    _step("write_json")
     if args.output_pos_uncertainty:
         from .output.uncertainty import write_apu
         units = {0: "XYZ", 1: "ENU", 2: "LLH"}.get(
@@ -743,6 +1066,20 @@ def _cmd_adjust(args) -> int:
         write_cor(f"{base}.cor", net, res, _oxyz2,
                   hz_threshold=getattr(args, "hz_corr_threshold", 0.0),
                   vt_threshold=getattr(args, "vt_corr_threshold", 0.0))
+    if args.export_snx or getattr(args, "export_sinex_file", False):
+        from .io_formats.sinex import write_sinex
+        write_sinex(f"{base}.snx", net, res)
+    export_xml_stn = (args.export_xml or
+                      getattr(args, "export_xml_stn_file", False))
+    export_xml_msr = (args.export_xml or
+                      getattr(args, "export_xml_msr_file", False))
+    if export_xml_stn or export_xml_msr:
+        from .io_formats.dynaml import write_dynaml_stn, write_dynaml_msr
+        if export_xml_stn:
+            write_dynaml_stn(f"{base}.adjusted.stn.xml", net)
+        if export_xml_msr:
+            write_dynaml_msr(f"{base}.adjusted.msr.xml", net)
+    _step("write_snx_xml")
     if (getattr(args, "export_dna_stn_file", False) or
             getattr(args, "export_dna_msr_file", False)):
         from .io_formats.dna_writer import write_dna_stn, write_dna_msr
@@ -795,6 +1132,130 @@ def _apply_cli_constraints(net, spec: str):
         net.constraints[net.station_index(name)] = cc
 
 
+def _cmd_dynadjust(args) -> int:
+    """Orchestrator: run import → reftran → geoid → segment → adjust
+    (the reference's stage order, dynadjust.cpp:288-427)."""
+    cli_files = bool(args.files)
+    if not getattr(args, "project_file", "") and args.network_name:
+        # the reference loads <network>.dnaproj implicitly from -n
+        # (dynadjust.cpp:250; dynadjust-name-01 CI test)
+        cand = os.path.join(args.output_folder, f"{args.network_name}.dnaproj")
+        if os.path.exists(cand):
+            args.project_file = cand
+    if getattr(args, "project_file", ""):
+        from .io_formats.dnaproj import project_to_args
+        loaded = project_to_args(args.project_file)
+        for k, v in loaded.items():
+            cur = getattr(args, k, None)
+            if cur in (None, "", [], False, 0) or \
+                    (k == "files" and not args.files):
+                setattr(args, k, v)
+        print(f"+ Loaded project file {args.project_file} "
+              f"(network {args.network_name})")
+    if not args.network_name:
+        print("error: network name required (use -n or -p)",
+              file=sys.stderr)
+        return 1
+    stage_flags = [args.run_import, args.run_reftran, args.run_geoid,
+                   args.run_segment, args.run_adjust]
+    explicit = any(stage_flags)
+    if not explicit and not cli_files:
+        # the reference requires at least one program switch
+        # (dyna-no-programs CI test)
+        print("- Error: no DynAdjust programs specified (use --import, "
+              "--reftran, --geoid, --segment, --adjust)", file=sys.stderr)
+        return 1
+    if not args.files and (not explicit or args.run_import):
+        print("error: no input files (use positional files or -p)",
+              file=sys.stderr)
+        return 1
+    if getattr(args, "export_project", ""):
+        from .io_formats.dnaproj import write_dnaproj
+        import os as _os
+        sections = {
+            "general": [("network-name", args.network_name),
+                        ("input-folder", "."),
+                        ("output-folder", args.output_folder)],
+            "import": ([("stn-msr-file", _os.path.basename(f))
+                        for f in args.files] +
+                       [("reference-frame", args.reference_frame)]),
+            "reftran": [("reference-frame", args.reference_frame),
+                        ("epoch", args.epoch)],
+            "geoid": [("ntv2-file", args.grid),
+                      ("interpolation-method",
+                       "1" if args.interpolation_method == "bicubic"
+                       else "0"),
+                      ("convert-stn-hts",
+                       "yes" if args.convert_stn_hts else "no")],
+            "segment": [("min-inner-stns", str(args.min_inner_stns)),
+                        ("max-block-stns", str(args.max_block_stns))],
+            "adjust": [("adjustment-mode",
+                        "phased-adjustment" if args.phased
+                        else "simultaneous-adjustment"),
+                       ("conf-interval", str(args.confidence_interval)),
+                       ("iteration-threshold",
+                        str(args.iteration_threshold)),
+                       ("max-iterations", str(args.max_iterations)),
+                       ("free-stn-sd", str(args.free_stn_sd)),
+                       ("fixed-stn-sd", str(args.fixed_stn_sd))],
+            "output": [("output-adj-msr",
+                        "yes" if args.output_adj_msr else "no")],
+        }
+        write_dnaproj(args.export_project, sections)
+        print(f"+ Wrote project file {args.export_project}")
+    # pipeline log (dynadjust.log; dynadjust.cpp:254-286 — failed stage
+    # short-circuits, each stage's status recorded)
+    import datetime as _dt
+    log_path = getattr(args, "dynadjust_log_file", "") or \
+        os.path.join(args.output_folder, "dynadjust.log")
+    log = open(log_path, "a")
+
+    def _stage(name, fn, enabled=True):
+        if not enabled:
+            return 0
+        t0 = time.time()
+        log.write(f"{_dt.datetime.now():%Y-%m-%d %H:%M:%S}  {name:<10}"
+                  f"started\n")
+        log.flush()
+        try:
+            rc = fn(args)
+        except Exception as e:
+            log.write(f"{_dt.datetime.now():%Y-%m-%d %H:%M:%S}  "
+                      f"{name:<10}EXCEPTION: {e}\n")
+            log.close()
+            raise
+        status = "done" if rc == 0 else f"FAILED (exit {rc})"
+        log.write(f"{_dt.datetime.now():%Y-%m-%d %H:%M:%S}  {name:<10}"
+                  f"{status} ({time.time() - t0:.2f} s)\n")
+        log.flush()
+        return rc
+
+    log.write(f"{_dt.datetime.now():%Y-%m-%d %H:%M:%S}  dynadjust "
+              f"pipeline: network {args.network_name}\n")
+    # with explicit program switches run exactly those stages; otherwise
+    # (files given directly) run the full pipeline
+    stages = [
+        ("import", _cmd_import,
+         args.run_import if explicit else True),
+        ("reftran", _cmd_reftran,
+         args.run_reftran if explicit else True),
+        ("geoid", _cmd_geoid,
+         args.run_geoid if explicit else bool(args.grid)),
+        ("segment", _cmd_segment,
+         args.run_segment if explicit else args.phased),
+        ("adjust", _cmd_adjust,
+         args.run_adjust if explicit else True),
+    ]
+    rc = 0
+    for name, fn, enabled in stages:
+        rc = _stage(name, fn, enabled)
+        if rc:
+            break
+    log.close()
+    return rc
+
+
+# the reference's option-group captions (dnaoptions-interface.hpp:32-58);
 # --help-module matches any caption by case-insensitive substring
 _HELP_MODULES = (
     "Standard options", "Output options", "Export options",
@@ -1162,6 +1623,104 @@ def main(argv=None) -> int:
     _add_common(p)
     p.set_defaults(func=_cmd_import)
 
+    p = sub.add_parser("geoid", help="interpolate geoid model")
+    p.add_argument("network_name", nargs="?", default="")
+    p.add_argument("-g", "--grid", required=True)
+    p.add_argument("--convert-stn-hts", action="store_true")
+    p.add_argument("-m", "--interpolation-method", default="bicubic",
+                   choices=["bilinear", "bicubic", "0", "1"],
+                   help="0/bilinear or 1/bicubic (default)")
+    p.add_argument("--export-dna-geo-file", "--export-dna-geo",
+                   dest="export_dna_geo_file", action="store_true",
+                   help="write a DNA .geo file of interpolated N values "
+                        "and deflections")
+    p.add_argument("--export-ntv2-gsb-file", default="",
+                   help="re-export the grid as NTv2 binary (.gsb)")
+    p.add_argument("--summary", "-u", action="store_true",
+                   help="print a summary of the grid file")
+    p.add_argument("--interactive", "-e", action="store_true",
+                   help="interpolate at --latitude/--longitude and print")
+    p.add_argument("--latitude", default="",
+                   help="interpolant latitude (dd.mmssss, or decimal "
+                        "degrees with --decimal-degrees)")
+    p.add_argument("--longitude", default="",
+                   help="interpolant longitude")
+    p.add_argument("--decimal-degrees", action="store_true",
+                   help="interactive coordinates are decimal degrees")
+    p.add_argument("--dat-uncertainty-file", default="",
+                   help="WINTER DAT uncertainty file for grid creation")
+    p.add_argument("--grid-shift-type", default="SECONDS",
+                   help="NTv2 units: seconds or radians")
+    p.add_argument("--grid-version", default="1.0.0.0")
+    p.add_argument("--system-from", default="GDA94")
+    p.add_argument("--semi-major-from", type=float, default=6378137.0,
+                   help="'from' ellipsoid semi-major for grid creation")
+    p.add_argument("--semi-minor-from", type=float, default=6356752.314)
+    p.add_argument("--semi-major-to", type=float, default=6378137.0)
+    p.add_argument("--semi-minor-to", type=float, default=6356752.314)
+    p.add_argument("--system-to", default="AHD_1971")
+    p.add_argument("--sub-grid-name", default="AUSGEOID")
+    p.add_argument("--creation-date", default="",
+                   help="grid creation date (dd.mm.yyyy)")
+    p.add_argument("--update-date", default="",
+                   help="grid update date (dd.mm.yyyy)")
+    p.add_argument("--create-ntv2", default="",
+                   help="create an NTv2 .gsb from an AUSGeoid DAT file "
+                        "(grid argument becomes the output path)")
+    p.add_argument("-c", dest="create_ntv2_flag", action="store_true",
+                   help="create NTv2 grid from the -d/--dat-file "
+                        "(reference CREATE_NTV2_C)")
+    p.add_argument("-d", "--dat-file", default="",
+                   help="standard DAT file for -c grid creation")
+    p.add_argument("-r", "--direction", type=int, default=0,
+                   choices=[0, 1],
+                   help="height conversion direction: 0 orthometric->"
+                        "ellipsoid (default), 1 ellipsoid->orthometric")
+    p.add_argument("--export-ascii-grid", default="",
+                   help="export the grid to NTv2 ASCII at this path")
+    p.add_argument("--export-ntv2-asc-file", "--export-ntv2-asc",
+                   dest="export_ntv2_asc_flag", action="store_true",
+                   help="export the grid to NTv2 ASCII next to it (.asc)")
+    p.add_argument("--export-ntv2-gsb", dest="export_ntv2_gsb_flag",
+                   action="store_true",
+                   help="export the grid to NTv2 binary next to it (.gsb)")
+    p.add_argument("-t", "--text-file", "--point-file",
+                   dest="point_file", default="",
+                   help="interpolate a DAT/CSV point file instead of a "
+                        "network")
+    _add_common(p)
+    p.set_defaults(func=_cmd_geoid)
+
+    p = sub.add_parser("reftran", help="transform reference frame")
+    p.add_argument("network_name", nargs="?", default="")
+    p.add_argument("-r", "--reference-frame", default="")
+    p.add_argument("-e", "--epoch", default="")
+    p.add_argument("-b", "--plate-boundary-file", default="",
+                   help="tectonic plate boundaries (.dig) for the plate "
+                        "motion model")
+    p.add_argument("--plate-model-option", type=int, default=0,
+                   help="0: single (Australian) plate (default); "
+                        "1: interpolate from global plate boundaries "
+                        "(-b/-m files)")
+    p.add_argument("--override-input-ref-frame", action="store_true",
+                   help="replace the input files' reference frame label "
+                        "with -r without transforming")
+    p.add_argument("-m", "--plate-pole-file", default="",
+                   help="Euler pole parameters (.dat) for the plate "
+                        "motion model")
+    p.add_argument("--export-dna", "--export-dna-files",
+                   dest="export_dna", action="store_true",
+                   help="export the transformed network as DNA .stn/.msr")
+    p.add_argument("--export-xml", "--export-xml-files",
+                   dest="export_xml", action="store_true",
+                   help="export the transformed network as DynaML "
+                        "stn/msr files")
+    p.add_argument("--single-xml-file", action="store_true",
+                   help="with --export-xml: one combined DynaML file")
+    _add_common(p)
+    p.set_defaults(func=_cmd_reftran)
+
+
     p = sub.add_parser("segment", help="segment network into blocks")
     p.add_argument("network_name", nargs="?", default="")
     p.add_argument("--seg-file", default="",
@@ -1188,6 +1747,116 @@ def main(argv=None) -> int:
     _add_adjust_args(p)
     _add_common(p)
     p.set_defaults(func=_cmd_adjust)
+
+    p = sub.add_parser("dynadjust", help="run the full pipeline")
+    p.add_argument("-n", "--network-name", default="")
+    p.add_argument("files", nargs="*")
+    # program switches (dynadjust.cpp:288-427; stage order import →
+    # reftran → geoid → segment → adjust)
+    p.add_argument("--import", dest="run_import", action="store_true",
+                   help="run the import stage")
+    p.add_argument("--reftran", dest="run_reftran", action="store_true",
+                   help="run the reference frame transformation stage")
+    p.add_argument("--geoid", dest="run_geoid", action="store_true",
+                   help="run the geoid interpolation stage")
+    p.add_argument("--segment", dest="run_segment", action="store_true",
+                   help="run the segmentation stage")
+    p.add_argument("--adjust", dest="run_adjust", action="store_true",
+                   help="run the adjustment stage")
+    p.add_argument("-p", "--project-file", default="",
+                   help=".dnaproj project file supplying all settings "
+                        "(CDnaProjectFile layout)")
+    p.add_argument("--dynadjust-log-file", default="",
+                   help="pipeline log path (default: "
+                        "<output-folder>/dynadjust.log)")
+    p.add_argument("--export-project", default="",
+                   help="write the effective settings to a .dnaproj file")
+    p.add_argument("-r", "--reference-frame", default="")
+    p.add_argument("-e", "--epoch", default="")
+    p.add_argument("-g", "--grid", default="")
+    p.add_argument("--convert-stn-hts", action="store_true")
+    p.add_argument("--interpolation-method", default="bicubic",
+                   choices=["bilinear", "bicubic"])
+    p.add_argument("--min-inner-stns", type=int, default=150)
+    p.add_argument("--max-block-stns", type=int, default=150)
+    p.add_argument("--starting-stns", default="")
+    p.add_argument("--net-file", action="store_true",
+                   help="seed the first block with stations from "
+                        "<network>.net")
+    p.add_argument("--contiguous-blocks", type=int, default=0,
+                   help="0: isolated networks as individual blocks "
+                        "(default); 1: force contiguous blocks")
+    p.add_argument("--search-level", type=int, default=0,
+                   help="station search depth (accepted for parity; "
+                        "selection is always global-lowest here)")
+    p.add_argument("--test-integrity", action="store_true",
+                   help="verify station-measurement connections per block")
+    _add_adjust_args(p)
+    _add_common(p, project_opt=False)
+    p.set_defaults(func=_cmd_dynadjust)
+
+    p = sub.add_parser("metadata",
+                       help="dump network store metadata (binary-file "
+                            "metadata utility analogue)")
+    p.add_argument("network_name")
+    p.add_argument("--output-folder", default=".")
+
+    def _cmd_metadata(a):
+        from . import project
+        from collections import Counter
+        from .io_formats.dna import GpsCluster, DirectionSet
+        net = project.load_network(getattr(a, 'input_folder', '') or
+                                   a.output_folder, a.network_name)
+        PAD = 35
+        print(f"{'Network name:':<{PAD}}{a.network_name}")
+        print(f"{'Reference frame:':<{PAD}}{net.frame}")
+        print(f"{'Epoch:':<{PAD}}{net.epoch}")
+        print(f"{'Stations:':<{PAD}}{net.nstations}")
+        print(f"{'Measurement records:':<{PAD}}{len(net.measurements)}")
+        tally = Counter()
+        rows = 0
+        for rec in net.measurements:
+            t = getattr(rec, "mtype", "?")
+            if isinstance(rec, GpsCluster):
+                tally[t] += len(rec.obs)
+                rows += 3 * len(rec.obs)
+            elif isinstance(rec, DirectionSet):
+                tally["D"] += len(rec.directions) + 1
+                rows += max(len(rec.directions), 0)
+            else:
+                tally[t] += 1
+                rows += 1
+        print(f"{'Measurement rows:':<{PAD}}{rows}")
+        print(f"{'Tally:':<{PAD}}" + "  ".join(
+            f"{t}:{n}" for t, n in sorted(tally.items())))
+        print(f"{'Geoid applied:':<{PAD}}"
+              f"{'Yes' if net.geoid_applied else 'No'}")
+        print(f"{'Reftran applied:':<{PAD}}"
+              f"{'Yes' if net.reftran_applied else 'No'}")
+        consts = Counter(net.constraints)
+        print(f"{'Constraints:':<{PAD}}" + "  ".join(
+            f"{c}:{n}" for c, n in sorted(consts.items())))
+        return 0
+    p.set_defaults(func=_cmd_metadata)
+
+    p = sub.add_parser("diff", help="tolerance-aware numeric file diff")
+    p.add_argument("file1")
+    p.add_argument("file2")
+    p.add_argument("-t", "--tolerance", type=float, default=0.0)
+    p.add_argument("--skip-headers", type=int, default=0)
+    p.add_argument("--skip-to-marker", default="")
+    p.add_argument("-v", "--verbose", action="store_true")
+
+    def _cmd_diff(a):
+        from .diff import main as diff_main
+        argv2 = [a.file1, a.file2, "-t", str(a.tolerance),
+                 "--skip-headers", str(a.skip_headers)]
+        if a.skip_to_marker:
+            argv2 += ["--skip-to-marker", a.skip_to_marker]
+        if a.verbose:
+            argv2.append("-v")
+        return diff_main(argv2)
+    p.set_defaults(func=_cmd_diff)
 
     if argv is None:
         argv = sys.argv[1:]

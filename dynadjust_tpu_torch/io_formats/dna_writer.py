@@ -25,18 +25,20 @@ def _header(kind: str, frame: str, epoch: str, count: int) -> str:
             f"{count:>10}")
 
 
-def write_dna_stn(path: str, net, adjusted=None):
+def write_dna_stn(path: str, net, adjusted=None, ellipsoidal=False):
     """Write stations from a NetworkData (current coordinates, LLH packed
-    DMS with orthometric height)."""
+    DMS with orthometric height; ``ellipsoidal=True`` writes LLh with the
+    ellipsoidal height instead)."""
     lines = [_header("STN", net.frame, net.epoch, net.nstations),
              "* Station file exported by dynadjust_tpu_torch"]
     lat = adjusted.lat if adjusted is not None else net.lat
     lon = adjusted.lon if adjusted is not None else net.lon
     hgt = adjusted.height if adjusted is not None else net.height
     for i in range(net.nstations):
-        H = hgt[i] - net.geoid_sep[i]
+        H = hgt[i] if ellipsoidal else hgt[i] - net.geoid_sep[i]
         lines.append(
-            f"{net.names[i]:<20}{net.constraints[i]:<4}LLH"
+            f"{net.names[i]:<20}{net.constraints[i]:<4}"
+            f"{'LLh' if ellipsoidal else 'LLH'}"
             f"{float(rad_to_dms(lat[i])):>20.10f}"
             f"{float(rad_to_dms(lon[i])):>20.10f}"
             f"{H:>20.4f}"

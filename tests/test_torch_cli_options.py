@@ -1,13 +1,18 @@
 """The port's CLI options against the JAX package's, and its refusals.
 
-Import screening and export flags, and adjust's report flags, run through
-both CLIs in-process on the same seeded 8 x 8 DNA files (the port with
---device cpu); the saved networks and the written files must agree.  A
-flag or input whose module the port does not hold exits non-zero naming
-its ROADMAP item, and adjust --tpu without --device cpu exits non-zero
-when no card is present, while the host route runs without a card.
+Import screening and export flags (DNA, DynaML, association lists,
+discontinuity files), adjust's report and export flags (JSON, SINEX,
+DynaML) and the SINEX and DynaML inputs run through both CLIs in-process
+on the same seeded 8 x 8 DNA files (the port with --device cpu); the
+saved networks and the written files must agree (below the lines that
+carry the run's date or the package's name).  A flag or input whose
+module the port does not hold exits non-zero naming its ROADMAP item,
+and adjust --tpu or dynadjust --tpu without --device cpu exits non-zero
+when no card is present, before writing anything, while the host route
+runs without a card.
 """
 
+import json
 import pickle
 
 import numpy as np
@@ -32,12 +37,25 @@ def dna(tmp_path_factory):
     write_dna_stn(str(d / "n.stn"), net)
     write_dna_msr(str(d / "n.msr"), net)
     (d / "rename.txt").write_text("S0_0 RENAMED_A\nS1_1 RENAMED_B\n")
+    # the same network observed in 2012 (even records) and 2018 (odd),
+    # and a discontinuity file breaking S0_0 and S1_1 in 2015
+    for k, rec in enumerate(net.measurements):
+        rec.epoch = "01.06.2012" if k % 2 == 0 else "01.06.2018"
+        if hasattr(rec, "epsg_frame"):
+            rec.epsg_frame = "GDA2020"
+    write_dna_msr(str(d / "e.msr"), net)
+    rows = [" S0_0  A    1 P 00:000:00000 15:152:00000 P - antenna",
+            " S0_0  A    2 P 15:152:00000 00:000:00000 P - antenna",
+            " S1_1  A    1 P 00:000:00000 15:152:00000 P - quake",
+            " S1_1  A    2 P 15:152:00000 00:000:00000 P - quake"]
+    (d / "disc.snx").write_text("+SOLUTION/DISCONTINUITY\n" + "\n".join(rows)
+                                + "\n-SOLUTION/DISCONTINUITY\n%ENDSNX\n")
     return d
 
 
-def _import(main, folder, dna, extra):
+def _import(main, folder, dna, extra, msr="n.msr"):
     folder.mkdir()
-    rc = main(["import", "-n", "n", str(dna / "n.stn"), str(dna / "n.msr"),
+    rc = main(["import", "-n", "n", str(dna / "n.stn"), str(dna / msr),
                "--output-folder", str(folder), *extra])
     return rc
 
@@ -67,14 +85,30 @@ IMPORT_FLAGS = {
                 "--remove-ignored-msr"],
     "frame": ["-r", "ITRF2014", "--override-input-ref-frame",
               "--observation-epoch", "2019"],
+    "xml-files": ["--export-xml-files"],
+    "single-xml-file": ["--single-xml-file"],
+    "assoc-lists": ["--export-asl-file", "--export-aml-file",
+                    "--export-map-file"],
+    "discontinuities": ["-d", "{dna}/disc.snx", "--export-discont-file",
+                        "--include-stns", "S0_0,S1_1,S0_1,S1_0"],
 }
+# the files each new export case must write
+EXPORTED = {"xml-files": ("nstn.xml", "nmsr.xml"),
+            "single-xml-file": ("n.xml",),
+            "assoc-lists": ("n.asl.txt", "n.aml.txt", "n.map.txt"),
+            "discontinuities": ("n.discont.txt",)}
+# files the import cases may write (compared where the JAX CLI wrote one)
+IMPORT_FILES = ("n.export.stn", "n.export.msr", "n.m2s", "nstn.xml",
+                "nmsr.xml", "n.xml", "n.asl.txt", "n.aml.txt", "n.map.txt",
+                "n.discont.txt")
 
 
 @pytest.mark.parametrize("case", list(IMPORT_FLAGS))
 def test_import_flags_agree(dna, tmp_path, case):
     extra = [a.format(dna=dna) for a in IMPORT_FLAGS[case]]
-    assert _import(jax_main, tmp_path / "jax", dna, extra) == 0
-    assert _import(torch_main, tmp_path / "torch", dna, extra) == 0
+    msr = "e.msr" if case == "discontinuities" else "n.msr"
+    assert _import(jax_main, tmp_path / "jax", dna, extra, msr) == 0
+    assert _import(torch_main, tmp_path / "torch", dna, extra, msr) == 0
     nj, nt = _net(tmp_path / "jax"), _net(tmp_path / "torch")
     assert nt.names == nj.names
     assert nt.constraints == nj.constraints
@@ -85,10 +119,14 @@ def test_import_flags_agree(dna, tmp_path, case):
     for a, b in zip(nt.measurements, nj.measurements):
         assert type(a).__name__ == type(b).__name__
         assert repr(a).split("(", 1)[1] == repr(b).split("(", 1)[1]
-    for name in ("n.export.stn", "n.export.msr", "n.m2s"):
-        if (tmp_path / "jax" / name).exists():
-            assert (_body(tmp_path / "torch" / name)
-                    == _body(tmp_path / "jax" / name)), name
+    written = [name for name in IMPORT_FILES
+               if (tmp_path / "jax" / name).exists()]
+    for name in written:
+        assert (_body(tmp_path / "torch" / name)
+                == _body(tmp_path / "jax" / name)), name
+    assert set(EXPORTED.get(case, ())) <= set(written)
+    if case == "discontinuities":
+        assert {"S0_0_2015152", "S1_1_1900001"} <= set(nt.names)
 
 
 def test_report_files_agree(dna, tmp_path):
@@ -115,14 +153,81 @@ def test_report_files_agree(dna, tmp_path):
     assert _body(t / "n.adjusted.stn") == _body(j / "n.adjusted.stn")
 
 
+ADJUST_EXPORTS = {
+    "json": (["--output-json", "--output-pos-uncertainty",
+              "--output-corrections-file"],
+             ["n.adj.jsonl", "n.xyz.jsonl", "n.apu.jsonl", "n.cor.jsonl"]),
+    "snx": (["--export-snx"], ["n.snx"]),
+    "xml": (["--export-xml"], ["n.adjusted.stn.xml", "n.adjusted.msr.xml"]),
+    "xml-stn-msr": (["--export-xml-stn-file", "--export-xml-msr-file"],
+                    ["n.adjusted.stn.xml", "n.adjusted.msr.xml"]),
+}
+
+
+def _json_records(path):
+    """A JSONL report without the "software" field (the package's
+    name)."""
+    out = []
+    for line in path.read_text().splitlines():
+        rec = json.loads(line)
+        rec.get("DnaAdjustmentReport", {}).pop("software", None)
+        out.append(rec)
+    return out
+
+
+@pytest.mark.parametrize("case", list(ADJUST_EXPORTS))
+def test_adjust_exports_agree(dna, tmp_path, case):
+    """adjust's JSON, SINEX and DynaML exports on the host route: the JAX
+    CLI's files (JSON records equal but for the software name; SINEX
+    below its %=SNX date line and "Produced by" comment)."""
+    flags, files = ADJUST_EXPORTS[case]
+    for main, sub, dev in ((jax_main, "jax", []),
+                           (torch_main, "torch", ["--device", "cpu"])):
+        assert _import(main, tmp_path / sub, dna, []) == 0
+        assert main(["adjust", "n", *flags, *dev,
+                     "--output-folder", str(tmp_path / sub)]) == 0
+    for name in files:
+        t, j = tmp_path / "torch" / name, tmp_path / "jax" / name
+        if name.endswith(".jsonl"):
+            assert _json_records(t) == _json_records(j), name
+        elif name.endswith(".snx"):
+            lt, lj = t.read_text().splitlines(), j.read_text().splitlines()
+            assert lt[0].split()[:3] == lj[0].split()[:3]
+            assert lt[3:] == lj[3:] and lt[1] == lj[1]
+        else:
+            assert t.read_text() == j.read_text(), name
+
+
+@pytest.mark.parametrize("ext", [".snx", ".xml"])
+def test_sinex_and_dynaml_inputs_agree(dna, tmp_path, ext):
+    """A SINEX file (written by adjust --export-snx) and a combined
+    DynaML file (import --single-xml-file) imported by both CLIs: the
+    same saved network."""
+    src = tmp_path / "src"
+    assert _import(jax_main, src, dna, ["--single-xml-file"]) == 0
+    assert jax_main(["adjust", "n", "--export-snx",
+                     "--output-folder", str(src)]) == 0
+    path = str(src / ("n.snx" if ext == ".snx" else "n.xml"))
+    for main, sub in ((jax_main, "jax"), (torch_main, "torch")):
+        (tmp_path / sub).mkdir()
+        assert main(["import", "-n", "n", path, "-r", "ITRF2014",
+                     "--output-folder", str(tmp_path / sub)]) == 0
+    nj, nt = _net(tmp_path / "jax"), _net(tmp_path / "torch")
+    assert nt.names == nj.names and len(nt.names) > 0
+    np.testing.assert_array_equal(nt.lat, nj.lat)
+    np.testing.assert_array_equal(nt.height, nj.height)
+    assert (nt.frame, nt.epoch) == (nj.frame, nj.epoch)
+    assert len(nt.measurements) == len(nj.measurements) > 0
+    for a, b in zip(nt.measurements, nj.measurements):
+        assert type(a).__name__ == type(b).__name__
+        assert repr(a).split("(", 1)[1] == repr(b).split("(", 1)[1]
+
+
 UNPORTED = {
-    "import": [(["--simulate"], "M8"), (["--export-bst-bms"], "M8"),
-               (["--export-xml-files"], "M8"),
-               (["-d", "disc.snx"], "M8")],
+    "import": [(["--simulate"], "M8b"), (["--export-bst-bms"], "M8b")],
     "adjust": [(["--phased", "--tpu", "--devices", "2"], "M7"),
-               (["--block1-phased", "--tpu"], "M9"),
-               (["--output-json"], "M8"), (["--export-snx"], "M8"),
-               (["--export-xml"], "M8")],
+               (["--block1-phased", "--tpu"], "M9")],
+    "dynadjust": [(["--phased", "--tpu", "--devices", "2"], "M7")],
 }
 CASES = [(verb, flags, item) for verb, rows in UNPORTED.items()
          for flags, item in rows]
@@ -135,6 +240,10 @@ def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
     if verb == "adjust":
         assert _import(torch_main, tmp_path / "w", dna, []) == 0
         argv = ["adjust", "n", *flags, "--device", "cpu"]
+    elif verb == "dynadjust":
+        (tmp_path / "w").mkdir()
+        argv = ["dynadjust", "-n", "n", str(dna / "n.stn"),
+                str(dna / "n.msr"), *flags, "--device", "cpu"]
     else:
         (tmp_path / "w").mkdir()
         argv = ["import", "-n", "n", str(dna / "n.stn"),
@@ -143,23 +252,46 @@ def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
     assert torch_main([*argv, "--output-folder", str(tmp_path / "w")]) == 1
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP.md {item}" in err, err
+    if verb == "dynadjust":
+        assert not list((tmp_path / "w").iterdir())
 
 
-@pytest.mark.parametrize("ext", [".bst", ".jsonl", ".snx", ".xml"])
+@pytest.mark.parametrize("ext", [".bst", ".bms", ".jsonl"])
 def test_unported_inputs_exit_nonzero(tmp_path, capsys, ext):
     path = tmp_path / f"in{ext}"
     path.write_text("")
     assert torch_main(["import", "-n", "n", str(path),
                        "--output-folder", str(tmp_path)]) == 1
-    assert "ROADMAP.md M8" in capsys.readouterr().err
+    assert "ROADMAP.md M8b" in capsys.readouterr().err
+
+
+def test_metadata_of_binary_file_is_refused(tmp_path, capsys):
+    """metadata reads the network store; the reference's binary files
+    (.bst, .bms) wait for their reader (ROADMAP.md M8b)."""
+    path = tmp_path / "x.bst"
+    path.write_bytes(b"")
+    assert torch_main(["metadata", str(path)]) == 1
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP.md M8b" in err, err
 
 
 @pytest.mark.parametrize("route", [
     ["--tpu"], ["--phased", "--tpu"],
-    ["--phased", "--tpu", "--tpu-super-blocks", "2"]])
+    ["--phased", "--tpu", "--tpu-super-blocks", "2"],
+    ["dynadjust", "--phased", "--tpu"]])
 def test_adjust_without_card_exits_nonzero(dna, tmp_path, capsys, route):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
+    if route[0] == "dynadjust":
+        # the pipeline verb stops before its import stage: nothing written
+        (tmp_path / "w").mkdir()
+        capsys.readouterr()
+        assert torch_main(["dynadjust", "-n", "n", str(dna / "n.stn"),
+                           str(dna / "n.msr"), *route[1:],
+                           "--output-folder", str(tmp_path / "w")]) == 1
+        assert "--device cpu" in capsys.readouterr().err
+        assert not list((tmp_path / "w").iterdir())
+        return
     assert _import(torch_main, tmp_path / "w", dna, []) == 0
     if "--phased" in route:
         assert torch_main(["segment", "n", "--min-inner-stns", "10",

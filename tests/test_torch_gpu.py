@@ -236,3 +236,46 @@ def test_dense_solve_indefinite_raises_on_card(cuda):
     N[7, 7] = -1.0
     with pytest.raises(torch.linalg.LinAlgError):
         dense_solve_device(N, np.ones(300), False, device="cuda")
+
+
+@pytest.mark.gpu
+def test_dynadjust_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """The pipeline verb on a 24 x 24 network (import, reftran to
+    ITRF2014 at 01.01.2024, geoid from a seeded 1' grid with
+    --convert-stn-hts, segment, adjust --phased --tpu) on the card and
+    with --device cpu: xyz within 1e-7 m, sigma zero within 1e-9, the
+    same iterations, and the kernel launched on the card's run only."""
+    import pickle
+    from dynadjust_tpu_torch.cli import main
+    from dynadjust_tpu_torch.geoid.gridtools import write_gsb
+    from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
+                                                           write_dna_stn)
+    from dynadjust_tpu_torch.utils.synthetic_geoid import (
+        orthometric_levelling, synthetic_geoid_grid)
+    net, _ = synthetic_mixed_network(24, 24, block_rows=12, block_cols=12)
+    grid = synthetic_geoid_grid(-37.5, -35.5, 142.5, 144.5)
+    write_gsb(grid, str(tmp_path / "g.gsb"))
+    orthometric_levelling(net, grid)
+    write_dna_stn(str(tmp_path / "n.stn"), net, ellipsoidal=True)
+    write_dna_msr(str(tmp_path / "n.msr"), net)
+    res, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        out.mkdir()
+        before = batched_cholesky_inverse.launches
+        assert main(["dynadjust", "-n", "n", str(tmp_path / "n.stn"),
+                     str(tmp_path / "n.msr"), "-r", "ITRF2014", "-e",
+                     "01.01.2024", "-g", str(tmp_path / "g.gsb"),
+                     "--convert-stn-hts", "--phased", "--tpu",
+                     "--min-inner-stns", "100", "--max-block-stns", "200",
+                     "--device", dev, "--output-folder", str(out)]) == 0
+        launches[dev] = batched_cholesky_inverse.launches - before
+        with open(out / "n.results.pkl", "rb") as f:
+            res[dev] = pickle.load(f)
+        assert (out / "dynadjust.log").read_text().count(" done ") == 5
+    g, c = res["cuda"], res["cpu"]
+    assert g.status == c.status == "Converged"
+    assert g.pass_fail == "PASSED" and g.iterations == c.iterations
+    assert np.abs(g.xyz - c.xyz).max() <= 1e-7
+    assert abs(g.sigma_zero - c.sigma_zero) <= 1e-9
+    assert launches["cuda"] > 0 and launches["cpu"] == 0

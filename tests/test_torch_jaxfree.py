@@ -6,8 +6,9 @@ dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
 chip_smoke, runs a small adjustment on the CPU, and checks that none of
 the three names was loaded; another runs `python -m dynadjust_tpu_torch`
-import, segment and adjust --phased --tpu --device cpu under the same
-hook; a static check reads every import statement.
+import, reftran, geoid, segment, adjust --phased --tpu --device cpu and
+the dynadjust pipeline verb under the same hook; a static check reads
+every import statement.
 """
 
 import ast
@@ -102,13 +103,26 @@ _CLI_CHILD = textwrap.dedent("""
         write_dna_msr, write_dna_stn)
     from dynadjust_tpu_torch.utils.synthetic_mixed import (
         synthetic_mixed_network)
+    from dynadjust_tpu_torch.geoid.gridtools import write_gsb
+    from dynadjust_tpu_torch.utils.synthetic_geoid import (
+        orthometric_levelling, synthetic_geoid_grid)
     net, _ = synthetic_mixed_network(6, 6, block_rows=3, block_cols=3)
-    write_dna_stn("n.stn", net)
+    grid = synthetic_geoid_grid(-37.5, -36.5, 142.5, 143.5)
+    write_gsb(grid, "g.gsb")
+    orthometric_levelling(net, grid)
+    write_dna_stn("n.stn", net, ellipsoidal=True)
     write_dna_msr("n.msr", net)
+    frame = ["-r", "ITRF2014", "-e", "01.01.2024"]
+    seg = ["--min-inner-stns", "10", "--max-block-stns", "20"]
     for verb in (["import", "-n", "n", "n.stn", "n.msr"],
-                 ["segment", "n", "--min-inner-stns", "10",
-                  "--max-block-stns", "20"],
-                 ["adjust", "n", "--phased", "--tpu", "--device", "cpu"]):
+                 ["reftran", "n", *frame],
+                 ["geoid", "n", "-g", "g.gsb", "--convert-stn-hts"],
+                 ["segment", "n", *seg],
+                 ["adjust", "n", "--phased", "--tpu", "--device", "cpu"],
+                 ["dynadjust", "-n", "p", "n.stn", "n.msr", *frame, "-g",
+                  "g.gsb", "--convert-stn-hts", "--phased", "--tpu",
+                  "--device", "cpu", *seg, "--output-json",
+                  "--export-snx", "--export-xml"]):
         sys.argv = ["dynadjust_tpu_torch", *verb]
         try:
             runpy.run_module("dynadjust_tpu_torch", run_name="__main__",
@@ -131,3 +145,7 @@ def test_cli_runs_without_jax(tmp_path):
         or "*** FAILED ***" in r.stdout, r.stdout
     for ext in ("net.pkl", "seg", "sap", "phased.adj", "xyz", "results.pkl"):
         assert (tmp_path / f"n.{ext}").exists(), ext
+        assert (tmp_path / f"p.{ext}").exists(), ext
+    for ext in ("adj.jsonl", "snx", "adjusted.stn.xml"):
+        assert (tmp_path / f"p.{ext}").exists(), ext
+    assert (tmp_path / "dynadjust.log").read_text().count(" done ") == 5
