@@ -6,7 +6,8 @@ Phases (each prints its elapsed seconds; any failure raises, and the
 script exits non-zero without printing a result):
 
   1. card name and power limit; build every kernel from csrc/ (nvcc, one
-     process per source, all started together) and print the build time;
+     process per source, all started together) and the host kernel
+     library (csrc/host_kernels.cpp, g++) and print the build times;
   2. kernel check: the Cholesky-inverse kernel against its plain PyTorch
      version on the card at the main path's level-1 shapes (SPD matrices
      from a seed; its float64 residual max|Linv N Linvᵀ − I| at most
@@ -52,7 +53,7 @@ script exits non-zero without printing a result):
      adjust per route, each after a fresh import and segment: host
      float64, --tpu (the dense solve: the kernel at (1, 3S) once per
      iteration), --phased --tpu, and --phased --tpu --tpu-super-blocks 2;
-     all converge in the same iterations with sigma zero 0.998 (the JAX
+     all converge in the same iterations with sigma zero 0.999 (the JAX
      package's CLI on the same files) and PASSED, .xyz files within 1e-4
      of the host route's number by number and the saved xyz within
      1e-6 m of it.  10,000 stations: import, segment --min-inner-stns
@@ -60,8 +61,16 @@ script exits non-zero without printing a result):
      in-memory two-level run's iterations and to adjust_tpu_blocked
      called directly on the saved network and segmentation with
      super_blocks=4 (xyz within 1e-6 m); its .results.pkl (past the
-     dense-covariance cap) loads back without torch.  Each verb is
-     timed, write_adj on its own;
+     dense-covariance cap) loads back without torch.  Block 1 at 1,600
+     stations, each after a fresh import and segment: adjust
+     --block1-phased on the host, and --block1-phased --tpu with and
+     without --staged-adjustment --create-stage-files, which launch the
+     kernel once per block at (1, 3 n_b) and are held to the host route:
+     saved xyz within 1e-6 m, .xyz numbers within 1e-4, the same status
+     line.  Every device solve of the dense and block-1 routes (and of
+     the pipeline's --tpu route) prints its shape, Newton rounds and
+     last residual, and must take 2 to 12 rounds.  Each verb is timed,
+     write_adj on its own;
   9. pipeline: the reftran and geoid stages and the pipeline verb, on
      DNA files whose stations carry ellipsoidal heights (LLh) and whose
      level differences are orthometric for a seeded 1' NTv2 grid (N 3-7
@@ -90,12 +99,24 @@ script exits non-zero without printing a result):
      first four stages save (run again with --import --reftran --geoid
      --segment), and the results pickle loaded with torch classes
      refused.  Each verb and stage is timed;
- 10. kernel at every (B, n) that the CLI and pipeline routes of phases 8
-     and 9 launched it at (the dense (1, 3S), the level-1 blocks of the
-     CLI's segmentation at 1,600 and 10,000 stations, and the level-2
-     systems of --tpu-super-blocks 2), with the gates of phase 2, each
-     timed against the plain version and the library;
- 11. one {"kernels": [...]} line, the card line, and the result line.
+ 10. formats: the binary and simulated inputs through the CLI.  1,600
+     stations: import --export-bst-bms, a fresh project imported from
+     the .bst/.bms pair (its .dbid beside it; the saved network equal to
+     the DNA import's), segment and adjust --phased --tpu, held to phase
+     8's DNA import on that route (the same iterations, saved xyz within
+     1e-9 m), and metadata of both files; import --simulate, the
+     stations imported with <net>.simulated.msr, segment and adjust
+     --phased --tpu: max_corr < 5e-4 m and sigma zero < 0.01.  10,000
+     stations: import --export-bst-bms and the import of the pair, the
+     same stations and records with equal coordinates and values; bytes
+     and seconds printed;
+ 11. kernel at every (B, n) that the CLI, pipeline and formats routes of
+     phases 8-10 launched it at (the dense (1, 3S), the block-1 systems
+     (1, 3 n_b), the level-1 blocks of the CLI's segmentation at 1,600
+     and 10,000 stations, and the level-2 systems of --tpu-super-blocks
+     2), with the gates of phase 2, each timed against the plain version
+     and the library;
+ 12. one {"kernels": [...]} line, the card line, and the result line.
 
 Host routes (run between phases 7 and 8; each adjustment prints its
 DTA_PROFILE phases, the host residual operator's calls and seconds, the
@@ -118,6 +139,10 @@ device memory peak and the host RSS peak so far):
      DTA_DEVICE_SOLVE_BYTES, so the solve takes the host refinement
      loop — held likewise to the same network with DTA_DEVICE_SOLVE=1
      (the device refined solve);
+  native: the host kernel library's blocked matvec against its numpy
+     version (the host loop's operator) at the 10k network's
+     host-assembly shapes, 1e-12 relative, seconds per call of each,
+     each timed alone and right after the other;
   cli (in phase 8): --phased --tpu --staged-adjustment
      --create-stage-files with and without --tpu-super-blocks 2, held
      also to their resident counterparts (.xyz within 1e-4, saved xyz
@@ -152,7 +177,7 @@ from dynadjust_tpu_torch import cli, project
 from dynadjust_tpu_torch.adjust import AdjustmentOptions
 from dynadjust_tpu_torch.adjust.tpu_blocked import (_build_partition,
                                                     adjust_tpu_blocked)
-from dynadjust_tpu_torch.ops import kernels
+from dynadjust_tpu_torch.ops import kernels, native
 from dynadjust_tpu_torch.ops.chol_inv import (batched_cholesky_inverse,
                                               cholesky_inverse_plain,
                                               fused_block_reduce)
@@ -260,9 +285,10 @@ def _grid_grouping(rows, cols, tile, super_blocks):
 
 
 def _main_path_shapes(rows, cols, tile, block_super):
-    """(B, ni) of the level-1 blocks the main path factors, and the
-    nested path's level-2 systems: (SB, ni2) and the number of real
-    inner-junction parameters of each super-block."""
+    """(B, ni) of the level-1 blocks the main path factors, the nested
+    path's level-2 systems: (SB, ni2) and the number of real
+    inner-junction parameters of each super-block, and the largest
+    block's junction parameters nj."""
     net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
                                        block_cols=tile)
 
@@ -287,7 +313,8 @@ def _main_path_shapes(rows, cols, tile, block_super):
          f"inner-junction slots, {npart.nsj_global} super-junction "
          f"parameters of {njg} junction parameters")
     return ((B, max(len(p[0]) for p in part)),
-            (npart.SB, npart.ni2, npart.i2mask.sum(axis=1).astype(int)))
+            (npart.SB, npart.ni2, npart.i2mask.sum(axis=1).astype(int)),
+            nj)
 
 
 def _spd(B, n, seed=0):
@@ -755,8 +782,15 @@ CLI_ROUTES = {"host": [], "dense": ["--tpu"],
 CLI_HOST = ("host", "host_phased", "host_staged")
 # staged routes and their resident counterparts
 CLI_RESIDENT = {"staged": "phased", "staged_sb2": "phased_sb2"}
-# sigma zero of the JAX package's CLI on the same 40 x 40 files (CPU)
-CLI_SIGMA0_40 = "0.998"
+# sigma zero of the JAX package's CLI on the same 40 x 40 files (CPU);
+# 0.998 on files whose angles' seconds below 1 were misread (ROADMAP.md F8)
+CLI_SIGMA0_40 = "0.999"
+# --block1-phased: one reverse sweep, rigorous for block 1 only; the host
+# route is the reference of the device routes (the kernel once per block)
+CLI_BLOCK1 = {"host_block1": ["--block1-phased"],
+              "block1": ["--block1-phased", "--tpu"],
+              "block1_staged": ["--block1-phased", "--tpu", *_STAGE]}
+B1_STATUS = "Estimates solved for Block 1 only"
 _NUM = re.compile(r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?")
 
 
@@ -918,8 +952,75 @@ def _cli_adjust(folder, name, extra):
     times = re.search(r"Times \(s\): (.*)", out).group(1).split()
     steps = {k: float(v) for k, v in zip(times[::2], times[1::2])}
     summary = [ln.strip() for ln in out.splitlines()
-               if ln.startswith(("+ Converged", "+ Failed", "  Chi"))]
+               if ln.startswith(("+ Converged", "+ Failed", "+ Estimates",
+                                 "  Chi"))]
     return res, secs, steps, launches, shapes, summary
+
+
+def _newton_lines(label, r):
+    """Print each device solve's shape, Newton rounds and last residual
+    of an adjust result (dense and block-1 routes) and hold the rounds
+    to 2..12: the solves' records."""
+    newton = (r.profile or {}).get("newton") or []
+    for k, rec in enumerate(newton):
+        _say(f"  {label} device solve {k + 1}: (1, {rec['n']}), "
+             f"{rec['rounds']} Newton rounds, residual "
+             f"{rec['residual']:.3e}")
+    _check(all(2 <= x["rounds"] <= 12 for x in newton),
+           f"{label}: Newton rounds {[x['rounds'] for x in newton]}")
+    return newton
+
+
+def phase_block1(d, files, out, dev=()):
+    """adjust --block1-phased at 1,600 stations on the host and on the
+    device with and without staging, each after a fresh import and
+    segment: the device routes launch the kernel once per block, at
+    (1, 3 n_b), and are held to the host route.  dev: extra adjust
+    arguments (a CPU trial passes --device cpu)."""
+    res = {}
+    for route, extra in CLI_BLOCK1.items():
+        f = d / route
+        f.mkdir()
+        t_imp = _verb(f, "import", "-n", "n40", *files)[0]
+        t_seg = _verb(f, "segment", "n40", "--min-inner-stns", "300",
+                      "--max-block-stns", "600")[0]
+        r, t, steps, launches, shapes, summary = _cli_adjust(
+            f, "n40", [*extra, *dev])
+        res[route] = r
+        out["launches"][f"cli_{route}"] = launches
+        out["shapes"][f"cli_{route}"] = list(shapes)
+        out["seconds"][f"40x40 {route}"] = {
+            "import": t_imp, "segment": t_seg, "adjust": t,
+            "adjust_steps": steps}
+        _say(f"cli 40x40 {route}: import {t_imp:.2f} s, segment "
+             f"{t_seg:.2f} s, adjust {t:.2f} s (steps {steps}); "
+             f"{' | '.join(summary)}; chol_inv launches {launches} "
+             f"{shapes}")
+        newton = _newton_lines(f"cli 40x40 {route}", r)
+        _check(r.status.startswith(B1_STATUS), f"{route}: {r.status}")
+        if route == "host_block1":
+            _check(launches == 0, "the host block-1 route runs no kernel")
+            continue
+        B = len(r.block_info)
+        solved = sorted((1, x["n"]) for x in newton)
+        launched = sorted(shp for shp, c in shapes.items()
+                          for _ in range(c))
+        _check(len(solved) == B and launched == ([] if dev else solved),
+               f"{route}: one device solve and one launch per block ({B} "
+               f"blocks, launches {launched}, solves {solved})")
+    host = res["host_block1"]
+    for route in ("block1", "block1_staged"):
+        r = res[route]
+        dxyz = float(np.abs(r.xyz - host.xyz).max())
+        worst = _files_agree(d / route / "n40.xyz",
+                             d / "host_block1" / "n40.xyz", 1e-4)
+        _say(f"cli 40x40 {route} vs host_block1: status {r.status!r}, "
+             f"saved xyz {dxyz:.3e} m (<= 1e-6), .xyz numbers {worst:.1e} "
+             f"(<= 1e-4)")
+        _check(r.status == host.status, f"{route} status {r.status}")
+        _check(dxyz <= 1e-6, f"{route} xyz vs host_block1 {dxyz}")
+    _check(any((d / "block1_staged" / "n40.mtx").iterdir()),
+           "the staged block-1 route wrote its stage files")
 
 
 def phase_cli(work, flat_iterations):
@@ -927,11 +1028,7 @@ def phase_cli(work, flat_iterations):
     out = {"launches": {}, "seconds": {}, "shapes": {}}
     d = Path(work) / "n40"
     d.mkdir()
-    net, _ = synthetic_mixed_network(40, 40, block_rows=34, block_cols=34,
-                                     seed=0)
-    write_dna_stn(str(d / "n40.stn"), net)
-    write_dna_msr(str(d / "n40.msr"), net)
-    files = [str(d / "n40.stn"), str(d / "n40.msr")]
+    files = _dna_inputs(d, "n40", 40, 40)
     res = {}
     for route, extra in CLI_ROUTES.items():
         f = d / route
@@ -956,6 +1053,7 @@ def phase_cli(work, flat_iterations):
              f"adjust {t:.2f} s (steps {steps}); "
              f"{' | '.join(summary)}; chol_inv launches {launches} "
              f"{shapes}; phases {r.profile}")
+        _newton_lines(f"cli 40x40 {route}", r)
         if route == "dense":
             _check(launches == r.iterations and len(shapes) == 1,
                    f"the dense route launched the kernel once per "
@@ -989,16 +1087,14 @@ def phase_cli(work, flat_iterations):
         _check(dxyz <= 1e-6, f"{route} xyz vs {resident} {dxyz}")
     _check(not (d / "host_staged" / "n40.mtx").exists(),
            "--purge-stage-files removed n40.mtx")
+    out["phased_40"] = res["phased"]
+    phase_block1(d, files, out)
 
     # 10,000 stations through the CLI's own segmentation
     d = Path(work) / "n10k"
     d.mkdir()
-    net, _ = synthetic_mixed_network(100, 100, block_rows=34, block_cols=34,
-                                     seed=0)
-    write_dna_stn(str(d / "n10k.stn"), net)
-    write_dna_msr(str(d / "n10k.msr"), net)
-    t_imp, imp_out = _verb(d, "import", "-n", "n10k", str(d / "n10k.stn"),
-                           str(d / "n10k.msr"))
+    t_imp, imp_out = _verb(d, "import", "-n", "n10k",
+                           *_dna_inputs(d, "n10k", 100, 100))
     _say(f"cli 10k {imp_out.splitlines()[-1].strip()}")
     t_seg = _verb(d, "segment", "n10k", "--min-inner-stns", "600",
                   "--max-block-stns", "1200")[0]
@@ -1154,6 +1250,7 @@ def phase_pipeline(work, sizes=((40, 40), (100, 100)), dev=()):
         _say(f"pipeline a {route}: adjust {t:.2f} s (steps {steps}); "
              f"{' | '.join(summary)}; chol_inv launches {launches} "
              f"{shapes}")
+        _newton_lines(f"pipeline a {route}", r)
         if route == "host":
             _check(launches == 0, "the host route runs no kernel")
         elif device == "cuda":
@@ -1256,6 +1353,197 @@ def phase_pipeline(work, sizes=((40, 40), (100, 100)), dev=()):
     return out
 
 
+def _dna_inputs(d, name, rows, cols):
+    """DNA files of the seeded mixed network (the cli phase's inputs)."""
+    net, _ = synthetic_mixed_network(rows, cols, block_rows=34,
+                                     block_cols=34, seed=0)
+    files = [str(d / f"{name}.stn"), str(d / f"{name}.msr")]
+    write_dna_stn(files[0], net)
+    write_dna_msr(files[1], net)
+    return files
+
+
+def _binary_bytes(folder, name):
+    return {ext: os.path.getsize(Path(folder) / f"{name}.{ext}")
+            for ext in ("bst", "bms", "asl", "aml", "map", "dbid")}
+
+
+def _same_saved_networks(a, b, what):
+    """Gate: the network imported from the binary pair (b) is the one
+    imported from DNA (a): the same stations and records, the records'
+    values and the coordinates equal (the .bst holds radians and its
+    import converts them to DMS and back, as the DNA import converts the
+    file's DMS: latitudes and longitudes within 8 units in the last
+    place) and sigmas within 1e-15 relative (the .bms holds
+    variances)."""
+    _check(a.names == b.names and len(a.measurements) == len(
+        b.measurements), f"{what}: stations and records")
+    dc = max(float(np.abs(getattr(a, k) - getattr(b, k)).max())
+             for k in ("lat", "lon"))
+    ulps = max(float((np.abs(getattr(a, k) - getattr(b, k))
+                      / np.spacing(np.abs(getattr(a, k)))).max())
+               for k in ("lat", "lon"))
+    dh = float(np.abs(a.height - b.height).max())
+    dv = dsd = 0.0
+    for ra, rb in zip(a.measurements, b.measurements):
+        _check(type(ra).__name__ == type(rb).__name__, f"{what}: types")
+        if hasattr(ra, "obs"):
+            for oa, ob in zip(ra.obs, rb.obs):
+                dv = max(dv, float(np.abs(oa.vec - ob.vec).max()))
+                dsd = max(dsd, float(np.abs(oa.vcv - ob.vcv).max()
+                                     / np.abs(oa.vcv).max()))
+        else:
+            dv = max(dv, abs(ra.value - rb.value))
+            dsd = max(dsd, abs(ra.sd - rb.sd) / ra.sd)
+    _say(f"{what}: {len(a.names)} stations, {len(a.measurements)} records; "
+         f"max |d lat/lon| {dc:.3e} rad, {ulps:.0f} units in the last place "
+         f"(<= 8), |d height| {dh:.3e} m (0), |d value| {dv:.3e} (0), "
+         f"sigma rel {dsd:.3e} (<= 1e-15)")
+    _check(ulps <= 8 and dh == 0.0 and dv == 0.0 and dsd <= 1e-15,
+           f"{what}: coordinates and values")
+
+
+def phase_formats(work, ref, sizes=((40, 40), (100, 100)), dev=()):
+    """The binary and simulated inputs through the port's CLI: (a) at
+    sizes[0], import --export-bst-bms, a fresh project imported from the
+    .bst/.bms pair (the .dbid beside it), segment and adjust --phased
+    --tpu, held to `ref` (the same route on the DNA import: iterations,
+    saved xyz within 1e-9 m), and metadata of both files; (b) at
+    sizes[0], import --simulate, the stations imported with
+    <net>.simulated.msr, segment and adjust --phased --tpu: max_corr <
+    5e-4 m and sigma zero < 0.01 (tests/test_simulate.py's bounds);
+    (c) at sizes[1], import --export-bst-bms and the import of the pair:
+    the same network.  dev: extra adjust arguments (a CPU trial passes
+    --device cpu)."""
+    out = {"launches": {}, "seconds": {}, "shapes": {}}
+    work = Path(work)
+    (ra, ca), (rb, cb) = sizes
+    seg = ["--min-inner-stns", "300", "--max-block-stns", "600"]
+
+    # (a) the binary pair at 1,600 stations
+    d = work / "fa"
+    d.mkdir()
+    files = _dna_inputs(d, "fa", ra, ca)
+    t_exp, exp_out = _verb(d, "import", "-n", "fa", *files,
+                           "--export-bst-bms")
+    nbytes = _binary_bytes(d, "fa")
+    b = d / "binary"
+    b.mkdir()
+    t_imp = _verb(b, "import", "-n", "fa", str(d / "fa.bst"),
+                  str(d / "fa.bms"))[0]
+    _same_saved_networks(project.load_network(str(d), "fa"),
+                         project.load_network(str(b), "fa"),
+                         f"formats {ra}x{ca} binary import")
+    t_seg = _verb(b, "segment", "fa", *seg)[0]
+    r, t, steps, launches, shapes, summary = _cli_adjust(
+        b, "fa", ["--phased", "--tpu", *dev])
+    out["launches"]["formats_binary_phased"] = launches
+    out["shapes"]["formats_binary_phased"] = list(shapes)
+    meta = {}
+    for ext in ("bst", "bms"):
+        meta[ext] = _verb(d, "metadata", str(d / f"fa.{ext}"))
+    dxyz = float(np.abs(r.xyz - ref.xyz).max())
+    out["seconds"][f"{ra}x{ca} binary"] = {
+        "import --export-bst-bms": t_exp, "import .bst/.bms": t_imp,
+        "segment": t_seg, "adjust --phased --tpu": t, "adjust_steps": steps,
+        "metadata": {k: v[0] for k, v in meta.items()}}
+    _say(f"formats {ra}x{ca} binary: export {t_exp:.2f} s ({nbytes} "
+         f"bytes), import of the pair {t_imp:.2f} s, segment {t_seg:.2f} "
+         f"s, adjust --phased --tpu {t:.2f} s; {' | '.join(summary)}; "
+         f"{r.iterations} iterations (DNA import {ref.iterations}), saved "
+         f"xyz {dxyz:.3e} m from the DNA import's (<= 1e-9); chol_inv "
+         f"launches {launches} {shapes}")
+    for ext, (secs, text) in meta.items():
+        _say(f"  metadata fa.{ext} ({secs:.2f} s): " + "; ".join(
+            ln.strip() for ln in text.splitlines()[:4]))
+        _check(f"bin_count:" in text, f"metadata of fa.{ext}")
+    _check(r.status == "Converged" and r.iterations == ref.iterations,
+           f"binary import: {r.status} in {r.iterations}")
+    _check(dxyz <= 1e-9, f"binary import xyz vs the DNA import {dxyz}")
+    _check(launches > 0 or bool(dev), "the binary import's adjustment "
+           "launched the kernel")
+
+    # (b) simulated measurements at 1,600 stations
+    d = work / "fs"
+    d.mkdir()
+    files = _dna_inputs(d, "fs", ra, ca)
+    t_sim, sim_out = _verb(d, "import", "-n", "fs", *files, "--simulate")
+    s = d / "sim"
+    s.mkdir()
+    t_imp = _verb(s, "import", "-n", "fs", files[0],
+                  str(d / "fs.simulated.msr"))[0]
+    t_seg = _verb(s, "segment", "fs", *seg)[0]
+    r, t, steps, launches, shapes, summary = _cli_adjust(
+        s, "fs", ["--phased", "--tpu", *dev])
+    out["launches"]["formats_simulated_phased"] = launches
+    out["shapes"]["formats_simulated_phased"] = list(shapes)
+    out["seconds"][f"{ra}x{ca} simulate"] = {
+        "import --simulate": t_sim, "import simulated": t_imp,
+        "segment": t_seg, "adjust --phased --tpu": t, "adjust_steps": steps}
+    _say(f"formats {ra}x{ca} simulate: import --simulate {t_sim:.2f} s "
+         f"({os.path.getsize(d / 'fs.simulated.msr')} bytes), import "
+         f"{t_imp:.2f} s, segment {t_seg:.2f} s, adjust --phased --tpu "
+         f"{t:.2f} s; {' | '.join(summary)}; max_corr {r.max_corr:.3e} m "
+         f"(< 5e-4), sigma zero {r.sigma_zero:.3e} (< 0.01); chol_inv "
+         f"launches {launches} {shapes}")
+    _check(r.status == "Converged" and abs(r.max_corr) < 5e-4
+           and r.sigma_zero < 0.01, f"simulated network: {r.status}, "
+           f"max_corr {r.max_corr}, sigma zero {r.sigma_zero}")
+
+    # (c) the binary pair at 10,000 stations
+    d = work / "fb"
+    d.mkdir()
+    files = _dna_inputs(d, "fb", rb, cb)
+    t_exp = _verb(d, "import", "-n", "fb", *files, "--export-bst-bms")[0]
+    nbytes = _binary_bytes(d, "fb")
+    b = d / "binary"
+    b.mkdir()
+    t_imp = _verb(b, "import", "-n", "fb", str(d / "fb.bst"),
+                  str(d / "fb.bms"))[0]
+    out["seconds"][f"{rb}x{cb} binary"] = {
+        "import --export-bst-bms": t_exp, "import .bst/.bms": t_imp,
+        "bytes": nbytes}
+    _say(f"formats {rb}x{cb} binary: import --export-bst-bms {t_exp:.2f} s "
+         f"({nbytes} bytes), import of the pair {t_imp:.2f} s")
+    _same_saved_networks(project.load_network(str(d), "fb"),
+                         project.load_network(str(b), "fb"),
+                         f"formats {rb}x{cb} binary import")
+    return out
+
+
+def phase_native(B, ni, nj, reps=4):
+    """The host kernel library's blocked matvec against its numpy version
+    (the host refinement loop's block products, schur._block_matvec) at
+    the 10k network's host-assembly shapes (B, ni, nj), float64 from a
+    seed: max relative difference, and seconds per call of each, first
+    each alone (reps calls in a row) and then in turns, each right
+    after the other (BLAS's threads still spinning)."""
+    rng = np.random.default_rng(0)
+    args = [rng.standard_normal(shp) for shp in (
+        (B, ni, ni), (B, ni, nj), (B, nj, nj), (B, ni), (B, nj))]
+    fns = {"native": native.block_matvec, "numpy": native.block_matvec_plain}
+    times = {}
+    for order in ("alone", "in turns"):
+        seq = ([n for n in fns for _ in range(reps)] if order == "alone"
+               else list(fns) * reps)
+        for name in seq:
+            t = time.perf_counter()
+            y = fns[name](*args)
+            times.setdefault(f"{name} {order}", []).append(
+                time.perf_counter() - t)
+            if name == "native":
+                got = y
+    want = native.block_matvec_plain(*args)
+    rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in zip(got, want))
+    nbytes = sum(a.nbytes for a in args)
+    _say(f"native block_matvec at ({B}, {ni}, {nj}) ({nbytes / 1e9:.2f} GB "
+         f"of float64 operands), s per call: {json.dumps(times)}; max rel "
+         f"difference {rel:.3e} (<= 1e-12)")
+    _check(rel <= 1e-12, f"native block_matvec vs numpy {rel}")
+    return {"shape": [B, ni, nj], **times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1265,14 +1553,17 @@ def main() -> int:
     secs, reports = kernels.timed_build()
     for name, rep in reports.items():
         _say(f"--- nvcc {name}.cu ---\n{rep.strip()}")
-    _say(f"phase build: {secs:.2f} s")
+    t = time.perf_counter()
+    native.build(force=True)
+    _say(f"phase build: {secs:.2f} s (nvcc); host kernel library "
+         f"{native.LIBRARY.name} (g++): {time.perf_counter() - t:.2f} s")
 
     rows = cols = 100
     tile = 34
     super_blocks = 4
     block_super = _grid_grouping(rows, cols, tile, super_blocks)
-    (B, ni), (SB, ni2, n_real) = _main_path_shapes(rows, cols, tile,
-                                                   block_super)
+    (B, ni), (SB, ni2, n_real), nj = _main_path_shapes(rows, cols, tile,
+                                                       block_super)
     t = time.perf_counter()
     kern = phase_kernel(B, ni)
     _say(f"phase kernel: {time.perf_counter() - t:.2f} s")
@@ -1326,6 +1617,9 @@ def main() -> int:
         host_shapes.update(sh)
         torch.cuda.empty_cache()
         _say(f"phase {name}: {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    phase_native(B, ni, nj)
+    _say(f"phase native: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     os.environ["DTA_PROFILE"] = "1"
@@ -1342,11 +1636,18 @@ def main() -> int:
     _say(f"phase pipeline: {time.perf_counter() - t:.2f} s; verbs (s): "
          + json.dumps(pipe["seconds"]))
 
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        fmts = phase_formats(work, clirun["phased_40"])
+    _say(f"phase formats: {time.perf_counter() - t:.2f} s; verbs (s): "
+         + json.dumps(fmts["seconds"]))
+
     # the kernel against its plain version at every shape the CLI and
     # pipeline routes launched it at
     t = time.perf_counter()
     cli_paths = {}
-    for path, shps in {**clirun["shapes"], **pipe["shapes"]}.items():
+    for path, shps in {**clirun["shapes"], **pipe["shapes"],
+                       **fmts["shapes"]}.items():
         for shp in shps:
             cli_paths.setdefault(shp, []).append(path)
     kern_cli = {}
@@ -1383,7 +1684,7 @@ def main() -> int:
                              "nested_cold": launches_nested[0],
                              "nested_warm": launches_nested[1],
                              **host_launches, **clirun["launches"],
-                             **pipe["launches"]},
+                             **pipe["launches"], **fmts["launches"]},
         **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
         "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],

@@ -16,9 +16,14 @@ forward pass; this matches the reference's sequential phased algorithm and
 is mathematically a two-sweep block Schur-complement solve of the full
 normal equations.
 
-Port of the JAX package's ``adjust/phased.py``, on the host (numpy
-throughout).  Its per-block device solve (``options.use_tpu``, which
-``adjust --block1-phased --tpu`` asks for) is not ported (ROADMAP.md M9).
+Port of the JAX package's ``adjust/phased.py``, on the host (numpy)
+but for the per-block solve of ``options.use_tpu`` (``adjust
+--block1-phased --tpu``): the Cholesky-inverse kernel with a
+Newton-refined float64 inverse on ``device``
+(parallel/dense_device.py), one (1, 3·n_b) launch per block solve.  The
+JAX package takes two fixed Newton rounds there; this solve takes them
+until the residual stops falling, since block 1 alone is weakly
+constrained (see parallel/dense_device.py).
 
 Algorithm parity: dnaadjust.cpp AdjustPhased :2579, AdjustPhasedForward
 :2756, AdjustPhasedReverseCombine :3461,
@@ -148,7 +153,8 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
                   stage_dir: str | None = None,
                   stage_name: str = "blocks",
                   block1: bool = False,
-                  _trace: dict | None = None) -> AdjustmentResult:
+                  _trace: dict | None = None,
+                  device="cuda") -> AdjustmentResult:
     """stage_dir: when given, per-block normals/AtVinv are offloaded to
     memory-mapped .mtx files between uses instead of held resident —
     bounding peak memory to a couple of blocks (the reference's
@@ -162,13 +168,20 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
     block1: solve rigorous estimates for block 1 only, via a single
     reverse sweep (AdjustPhasedBlock1, dnaadjust.cpp:2675 — "only the
     reverse adjustment is needed to achieve rigorous estimates for
-    block 1"); one iteration, no forward pass or combination."""
+    block 1"); one iteration, no forward pass or combination.
+
+    device: where the block solves run when options.use_tpu is set —
+    "cuda" (the Cholesky-inverse kernel) or "cpu" (its plain PyTorch
+    version); without use_tpu they are host LAPACK and device is not
+    used.  With use_tpu, result.profile["newton"] holds each block
+    solve's Newton rounds and residual."""
     opts = options or AdjustmentOptions()
-    if opts.use_tpu:
-        raise NotImplementedError(
-            "the per-block device solve of the phased sweeps (use_tpu) is "
-            "not ported to dynadjust_tpu_torch: ROADMAP.md M9")
     t0 = time.time()
+    newton = [] if opts.use_tpu else None
+
+    def solve(N, rhs):
+        return _solve_normals(N, rhs, opts.scale_normals_to_unity,
+                              opts.use_tpu, device, newton)
 
     if seg is None:
         if seg_file:
@@ -228,8 +241,7 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
                 _add_junction_contrib(N, rhs, blk, blocks[b - 1].jsl,
                                       jsl_w_fwd[b - 1], jsl_est_fwd[b - 1],
                                       blk.est)
-            Ninv, dx = _solve_normals(N, rhs, opts.scale_normals_to_unity,
-                                      opts.use_tpu)
+            Ninv, dx = solve(N, rhs)
             blk.est = blk.est + dx
             if _trace is not None and iteration == 1:
                 _trace.setdefault("fwd", {})[b] = dx.copy()
@@ -256,9 +268,7 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
                 _add_junction_contrib(N, rhs, blk, blk.jsl,
                                       jsl_w_rev[b + 1], jsl_est_rev[b + 1],
                                       est_r)
-            Ninv_r, dx_r = _solve_normals(N, rhs,
-                                          opts.scale_normals_to_unity,
-                                          opts.use_tpu)
+            Ninv_r, dx_r = solve(N, rhs)
             est_r = est_r + dx_r
             if _trace is not None and iteration == 1:
                 _trace.setdefault("rev", {})[b] = dx_r.copy()
@@ -296,9 +306,7 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
                 _add_junction_contrib(Nc, rhs_c, blk, blk.jsl,
                                       jsl_w_rev[b + 1], jsl_est_rev[b + 1],
                                       est_c)
-                Ninv_c, dx_c = _solve_normals(Nc, rhs_c,
-                                              opts.scale_normals_to_unity,
-                                              opts.use_tpu)
+                Ninv_c, dx_c = solve(Nc, rhs_c)
                 blk.rigorous_est = est_c + dx_c
                 if _trace is not None and iteration == 1:
                     _trace.setdefault("comb", {})[b] = dx_c.copy()
@@ -412,7 +420,8 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
         critical_value=float(crit), xyz=xyz_all.copy(),
         lat=net.lat.copy(), lon=net.lon.copy(), height=net.height.copy(),
         cov_xyz=cov, msr_stats=stats_rows, iteration_log=it_log,
-        block_info=block_info, initial_xyz=initial_xyz, elapsed=time.time() - t0)
+        block_info=block_info, initial_xyz=initial_xyz, elapsed=time.time() - t0,
+        profile=None if newton is None else {"newton": newton})
 
 
 def _block_normals(blk: Block):

@@ -139,7 +139,7 @@ def _critical_value(confidence: float):
 
 
 def _solve_normals(N, AtVinv_m, scale_to_unity: bool,
-                   use_tpu: bool = False, device="cuda"):
+                   use_tpu: bool = False, device="cuda", record=None):
     """Invert the (constrained) normals and solve for corrections.
 
     Diagonal unity scaling combats the 12-orders-of-magnitude dynamic range
@@ -147,13 +147,14 @@ def _solve_normals(N, AtVinv_m, scale_to_unity: bool,
 
     Default path: host LAPACK in f64.  use_tpu (--tpu): the float32
     Cholesky-inverse kernel with a Newton-refined f64 inverse on `device`
-    (parallel/dense_device.py) — same f64-quality results.  The scalable
-    blocked path is adjust/tpu_blocked.py.
+    (parallel/dense_device.py) — same f64-quality results; record gets
+    its Newton rounds and residual appended.  The scalable blocked path
+    is adjust/tpu_blocked.py.
     """
     if use_tpu:
         from ..parallel.dense_device import dense_solve_device
         return dense_solve_device(N, AtVinv_m, scale_to_unity,
-                                  device=device)
+                                  device=device, record=record)
     import scipy.linalg as sla
     n = N.shape[0]
     if scale_to_unity:
@@ -219,6 +220,7 @@ def adjust_simultaneous(net: NetworkData,
     from .diagnostics import OscillationTracker
     osc = OscillationTracker()
     prof = {"update_normals_ns": 0, "solve_ns": 0}
+    newton = []         # the device solves' Newton rounds (use_tpu)
     import time as _time
     Ninv = None
     max_corr = np.inf
@@ -234,7 +236,7 @@ def adjust_simultaneous(net: NetworkData,
         _t0 = _time.perf_counter_ns()
         if compute_inverse:
             Ninv, dx = _solve_normals(N, rhs, opts.scale_normals_to_unity,
-                                      opts.use_tpu, device)
+                                      opts.use_tpu, device, newton)
         else:
             dx = Ninv @ rhs
         prof["solve_ns"] += _time.perf_counter_ns() - _t0
@@ -331,11 +333,14 @@ def adjust_simultaneous(net: NetworkData,
         _measurement_stats(asm, net, Ninv, est, crit)
     # wall-clock seconds per phase: setup (assembler, first fill and
     # normals), update_normals (re-linearisation: fill + normals), solve,
-    # stats (final fill + measurement statistics)
+    # stats (final fill + measurement statistics); with use_tpu, each
+    # device solve's Newton rounds and residual
     phases = {"setup": t_setup,
               "update_normals": prof["update_normals_ns"] / 1e9,
               "solve": prof["solve_ns"] / 1e9,
               "stats": _time.perf_counter() - _t_stats}
+    if opts.use_tpu:
+        phases["newton"] = newton
 
     dof = m_count - unknown_count
     sigma0 = chi_sq / dof if dof else 0.0

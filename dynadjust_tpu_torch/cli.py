@@ -1,6 +1,6 @@
 """Command-line interface: the pipeline verbs of DynAdjust (import,
 reftran, geoid, segment, adjust), the one-shot pipeline verb dynadjust,
-and the metadata and diff utilities.
+and the metadata, diff and plot utilities.
 
 Usage:
     python -m dynadjust_tpu_torch import  -n NAME stations.stn measurements.msr
@@ -15,25 +15,32 @@ Usage:
                                               [--device cuda|cpu] ...
     python -m dynadjust_tpu_torch dynadjust -n NAME files... [-r FRAME]
                                               [-g grid.gsb] [adjust flags]
-    python -m dynadjust_tpu_torch metadata NAME
+    python -m dynadjust_tpu_torch metadata NAME|FILE.bst|FILE.bms
     python -m dynadjust_tpu_torch diff FILE1 FILE2 [-t TOL]
+    python -m dynadjust_tpu_torch plot NAME [--segmentation-graph]
+                                              [--block-number N] ...
 
 The verbs take the JAX package's arguments and write the same files
 (``<name>.net.pkl``, ``.seg``, ``.sap``, ``.adj``, ``.xyz``,
-``.results.pkl``, ``.adj.jsonl``, ``.snx``, DynaML ``.xml``, ...).
+``.results.pkl``, ``.adj.jsonl``, ``.snx``, DynaML ``.xml``, the
+reference's binary ``.bst``/``.bms`` with ``.dbid``, ...); ``import``
+also reads ``.bst``/``.bms`` and ``.jsonl`` inputs and ``--simulate``
+writes ``<name>.simulated.msr``.
 ``adjust`` keeps the host float64 LAPACK route by default, and
 ``--phased``, ``--block1-phased`` or ``--staged-adjustment`` without
 ``--tpu`` take the host sequential phased adjustment (adjust/phased.py).
 ``--tpu`` selects the device routes: the dense simultaneous solve
-(parallel/dense_device.py) and, with ``--phased`` or
+(parallel/dense_device.py), the same solve per block of the sequential
+sweeps with ``--block1-phased``, and, with ``--phased`` or
 ``--staged-adjustment``, the blocked Schur adjustment
 (adjust/tpu_blocked.py; host-streamed factors when staged).  They run on
 ``--device`` (default ``cuda``); ``adjust --tpu`` and ``dynadjust --tpu``
 exit non-zero before their first stage when the card they ask for is
 absent.  The host route needs no card and ``--device`` does not touch
-it.  ``reftran``, ``geoid``, ``metadata`` and ``diff`` are host numpy.
-A flag or input whose module this package does not hold yet exits
-non-zero, naming the ROADMAP.md item that ports it.
+it.  ``reftran``, ``geoid``, ``metadata``, ``diff`` and ``plot``
+(matplotlib, imported when the verb runs) are host code.  ``--devices``
+(multi-device) is not ported yet: it exits non-zero, naming the
+ROADMAP.md item that ports it.
 
 Parity reference: per-tool wrappers dna*wrapper/*.cpp and the dynadjust
 pipeline (dynadjust/dynadjust.cpp:96-427) of DynAdjust.
@@ -46,43 +53,14 @@ import os
 import sys
 import time
 
-# flags whose modules are not in this package yet: (argument attribute,
-# flag, ROADMAP.md item that ports it)
-_UNPORTED = (
-    ("simulate", "--simulate", "M8b"),
-    ("export_bst_bms", "--export-bst-bms", "M8b"),
-    ("devices", "--devices", "M7"),
-)
-# input file types whose readers are not ported (ROADMAP.md M8b)
-_UNPORTED_INPUTS = (".bst", ".bms", ".jsonl")
-
-
-def _unported_input(path) -> str:
-    """The refusal of an input file this package cannot read, or ''."""
-    if path.endswith(_UNPORTED_INPUTS):
-        return f"input {path} (ROADMAP.md M8b)"
-    return ""
-
-
 def _refuse_unported(args) -> bool:
-    """Print an error and return True when args ask for a module this
-    package does not hold."""
-    why = [f"{flag} (ROADMAP.md {item})" for attr, flag, item in _UNPORTED
-           if getattr(args, attr, None)]
-    why += [w for w in map(_unported_input, getattr(args, "files", None)
-                           or []) if w]
-    if args.command == "metadata" and \
-            args.network_name.endswith((".bst", ".bms")):
-        why.append(f"metadata of the binary file {args.network_name} "
-                   f"(ROADMAP.md M8b)")
-    if (getattr(args, "block1_phased", False) and args.tpu
-            and not args.report_mode):
-        why.append("--block1-phased --tpu: the per-block device solve of "
-                   "the phased sweeps (ROADMAP.md M9)")
-    if why:
-        print("- Error: not ported to dynadjust_tpu_torch yet: "
-              + "; ".join(why), file=sys.stderr)
-    return bool(why)
+    """Print an error and return True when args ask for multi-device
+    sharding (--devices), the one module this package does not hold."""
+    if not getattr(args, "devices", None):
+        return False
+    print("- Error: not ported to dynadjust_tpu_torch yet: --devices "
+          "(ROADMAP.md M7)", file=sys.stderr)
+    return True
 
 
 def _runs_adjust(args) -> bool:
@@ -190,15 +168,65 @@ def _cmd_import(args) -> int:
                 p3=float(src_net.height[i]),
                 description=src_net.descriptions[i]))
         measurements = list(src_net.measurements)
+    _bst_names = []
     for path in args.files:
         if path.endswith(".stn"):
             stns, frame, epoch = read_dna_stn(path)
             stations.extend(stns)
+        elif path.endswith(".bst"):
+            # reference binary station file (raw station_t records)
+            from .io_formats.dna import Station
+            from .io_formats.binary import (read_bst, frame_from_epsg,
+                                            _cstr as _bs)
+            from .geodesy.conversions import rad_to_dms
+            rows_b, meta_b = read_bst(path)
+            for s in rows_b:
+                nm = _bs(s["stationName"])
+                _bst_names.append(nm)
+                stations.append(Station(
+                    name=nm,
+                    constraints=_bs(s["stationConst"]) or "FFF",
+                    coord_type="LLh",
+                    p1=float(rad_to_dms(s["currentLatitude"])),
+                    p2=float(rad_to_dms(s["currentLongitude"])),
+                    p3=float(s["currentHeight"]),
+                    description=_bs(s["description"])))
+            frame = frame or frame_from_epsg(meta_b["epsg"])
+            epoch = epoch or meta_b["epoch"]
+        elif path.endswith(".bms"):
+            # reference binary measurement file; station indices refer
+            # to the .bst listed before it
+            from .io_formats.binary import read_bms, records_from_rows
+            if not _bst_names:
+                print("- Error: a .bms file requires its .bst station "
+                      "file to be listed first", file=sys.stderr)
+                return 1
+            rows_m, _ = read_bms(path)
+            recs_m = records_from_rows(rows_m, _bst_names)
+            dbid_path = path[:-4] + ".dbid"
+            if os.path.exists(dbid_path):
+                # re-attach measurement database ids (LoadDatabaseId)
+                from .io_formats.dbid import read_dbid, apply_dbid
+                from types import SimpleNamespace
+                try:
+                    apply_dbid(SimpleNamespace(measurements=recs_m),
+                               read_dbid(dbid_path))
+                except ValueError as e:
+                    print(f"- Warning: ignoring {dbid_path}: {e}",
+                          file=sys.stderr)
+            measurements.extend(recs_m)
         elif path.endswith(".msr"):
             recs, mframe, mepoch = read_dna_msr(path)
             measurements.extend(recs)
             frame = frame or mframe
             epoch = epoch or mepoch
+        elif path.endswith(".jsonl"):
+            from .io_formats.jsonl import read_jsonl
+            stns, recs, jframe, jepoch = read_jsonl(path)
+            stations.extend(stns)
+            measurements.extend(recs)
+            frame = frame or jframe
+            epoch = epoch or jepoch
         elif path.endswith((".snx", ".SNX")):
             from .io_formats.sinex import read_sinex
             stns, recs, sframe, sepoch = read_sinex(path, disconts=disconts)
@@ -213,10 +241,6 @@ def _cmd_import(args) -> int:
             measurements.extend(recs)
             frame = frame or xframe
             epoch = epoch or xepoch
-        elif _unported_input(path):
-            print("- Error: not ported to dynadjust_tpu_torch yet: "
-                  + _unported_input(path), file=sys.stderr)
-            return 1
         else:
             print(f"error: unrecognised input file type: {path}",
                   file=sys.stderr)
@@ -502,6 +526,14 @@ def _cmd_import(args) -> int:
         n_oe = apply_observation_epoch(net.measurements, oe)
         net.observation_epoch = oe
         print(f"+ Observation epoch {oe} applied to {n_oe} measurements")
+    if getattr(args, "simulate", False):
+        from .network.simulate import simulate_measurements
+        from .io_formats.dna_writer import write_dna_msr
+        n = simulate_measurements(net)
+        base = os.path.join(args.output_folder, args.network_name)
+        write_dna_msr(f"{base}.simulated.msr", net)
+        print(f"+ Simulated {n} measurement records -> "
+              f"{base}.simulated.msr")
     if getattr(args, "export_asl_file", False) or \
             getattr(args, "export_aml_file", False) or \
             getattr(args, "export_map_file", False):
@@ -539,6 +571,22 @@ def _cmd_import(args) -> int:
         base = os.path.join(args.output_folder, args.network_name)
         export_discontinuities(f"{base}.discont.txt", disconts)
         print(f"+ Exported discontinuity info: {base}.discont.txt")
+    if getattr(args, "export_bst_bms", False):
+        # reference-compatible binary files (the full set the reference
+        # import writes: bst/bms/asl/aml/map)
+        from .io_formats.binary import (write_bst, write_bms,
+                                        write_asl_aml, write_map)
+        from .io_formats.dbid import write_dbid
+        base = os.path.join(args.output_folder, args.network_name)
+        write_bst(f"{base}.bst", net)
+        write_bms(f"{base}.bms", net)
+        write_asl_aml(f"{base}.asl", f"{base}.aml", net)
+        write_map(f"{base}.map", net)
+        # measurement database ids, one record per binary row (the
+        # reference's SerialiseDatabaseId, dnainterop.cpp:5117)
+        write_dbid(f"{base}.dbid", net)
+        print(f"+ Exported binary files: "
+              f"{base}.bst/.bms/.asl/.aml/.map/.dbid")
     if getattr(args, "output_msr_to_stn", False):
         from .output.adj_writer import msr_to_stn_lines
         sort = {0: "name", 1: "count", 2: "file_order"}.get(
@@ -944,11 +992,16 @@ def _cmd_adjust(args) -> int:
             res = adjust_phased(
                 net, opts, seg_file,
                 stage_dir=stage_base if args.staged_adjustment else None,
-                stage_name=args.network_name, block1=args.block1_phased)
+                stage_name=args.network_name, block1=args.block1_phased,
+                device=args.device)
     else:
         res = adjust_simultaneous(net, opts, device=args.device)
     elapsed = time.time() - t0
     _step("adjust")
+    if os.environ.get("DTA_PROFILE") and (res.profile or {}).get("newton"):
+        print("DTA_PROFILE device solves (n, Newton rounds, residual): "
+              + "  ".join(f"({r['n']}, {r['rounds']}, {r['residual']:.3e})"
+                          for r in res.profile["newton"]))
 
     if args.purge_stage_files:
         import shutil
@@ -1795,6 +1848,252 @@ def main(argv=None) -> int:
     _add_common(p, project_opt=False)
     p.set_defaults(func=_cmd_dynadjust)
 
+    p = sub.add_parser("plot", help="plot network map / segmentation graph")
+    p.add_argument("network_name", nargs="?", default="")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--segmentation-graph", "--graph-stn-blocks",
+                   "--graph-msr-blocks", dest="segmentation_graph",
+                   action="store_true",
+                   help="per-block station/measurement graph")
+    p.add_argument("--phased", action="store_true",
+                   help="accepted for parity (block colouring is automatic "
+                        "when a segmentation exists)")
+    p.add_argument("--error-ellipses", action="store_true",
+                   help="draw station error ellipses (requires a prior "
+                        "adjustment)")
+    p.add_argument("--positional-uncertainty", action="store_true",
+                   help="draw 95%% positional uncertainty circles")
+    p.add_argument("--correction-arrows", action="store_true",
+                   help="draw correction arrows (initial -> adjusted)")
+    p.add_argument("--compute-corrections", action="store_true",
+                   help="accepted for parity; corrections are always "
+                        "computed from the saved adjustment")
+    p.add_argument("--scale-arrows", type=float, default=1.0,
+                   help="correction arrow magnification")
+    p.add_argument("--scale-ellipse-circles", type=float, default=1.0,
+                   help="error ellipse / PU circle magnification")
+    p.add_argument("--plot-msr-types", default="",
+                   help="only plot these measurement type codes, e.g. GXY")
+    p.add_argument("--omit-measurements", action="store_true")
+    p.add_argument("--plot-ignored-msrs", action="store_true")
+    p.add_argument("--msr-line-width", type=float, default=0.4)
+    p.add_argument("--label-stations", action="store_true")
+    p.add_argument("--label-constraints", action="store_true")
+    p.add_argument("--label-corrections", action="store_true")
+    p.add_argument("--label-font-size", type=float, default=6.0)
+    p.add_argument("--block-number", type=int, default=0,
+                   help="plot only this segmentation block (1-based)")
+    p.add_argument("--phased-block-view", action="store_true",
+                   help="write one map per segmentation block "
+                        "(PLOT_BLOCKS, dnaplotwrapper.cpp:375)")
+    p.add_argument("--omit-title-block", action="store_true")
+    p.add_argument("--title", default="")
+    p.add_argument("--org-unit-name", default="",
+                   help="organisational unit in the title block "
+                        "(TITLEBLOCK_NAME)")
+    p.add_argument("--org-subunit-name", default="",
+                   help="organisational sub-unit in the title block "
+                        "(TITLEBLOCK_SUBNAME)")
+    p.add_argument("--plate-boundary-file", default="",
+                   help="tectonic plate boundaries (.dig) to overlay "
+                        "(TECTONIC_PLATE_BDY_FILE)")
+    p.add_argument("--alternate-name", action="store_true",
+                   help="plot station descriptions as labels "
+                        "(PLOT_ALT_NAME, dnaplot.cpp:2495)")
+    p.add_argument("--centre-latitude", type=float, default=-999.0,
+                   help="centre the plot on this latitude (dd.mmsssss)")
+    p.add_argument("--centre-longitude", type=float, default=-999.0,
+                   help="centre the plot on this longitude (ddd.mmsssss)")
+    p.add_argument("--centre-station", default="",
+                   help="centre the plot on this station")
+    p.add_argument("--area-radius", type=float, default=5000.0,
+                   help="window radius in metres around the centre "
+                        "(default 5000, dnaoptions.hpp:617)")
+    p.add_argument("--bounding-box", default="",
+                   help="lat1,lon1,lat2,lon2 (dd.mmss) upper-left and "
+                        "lower-right plot limits")
+    p.add_argument("--map-projection", type=int, default=0,
+                   help="map projection id (reference GMT projections; "
+                        "matplotlib maps use a cos-latitude-scaled "
+                        "equirectangular view)")
+    p.add_argument("--export-png", action="store_true",
+                   help="write PNG instead of PDF")
+    p.add_argument("--supress-pdf-creation", action="store_true",
+                   help="skip the map output (graph data only)")
+    _add_common(p)
+
+    def _plot_centre(a, net):
+        """(lat_deg, lon_deg) window centre from --centre-station or
+        --centre-latitude/--centre-longitude (dd.mmsssss packed DMS)."""
+        import numpy as _np
+        from .geodesy.conversions import dms_to_rad
+        if a.centre_station:
+            i = net.name_to_idx.get(a.centre_station)
+            if i is None:
+                raise SystemExit(f"- Error: centre station "
+                                 f"'{a.centre_station}' is not in the "
+                                 f"network")
+            return (float(_np.degrees(net.lat[i])),
+                    float(_np.degrees(net.lon[i])))
+        if a.centre_latitude > -999.0 and a.centre_longitude > -999.0:
+            return (float(_np.degrees(dms_to_rad(a.centre_latitude))),
+                    float(_np.degrees(dms_to_rad(a.centre_longitude))))
+        return None
+
+    def _plot_bbox(s):
+        """lat1,lon1,lat2,lon2 (dd.mmss) -> degrees tuple."""
+        if not s:
+            return None
+        import numpy as _np
+        from .geodesy.conversions import dms_to_rad
+        parts = [float(v) for v in s.split(",")]
+        if len(parts) != 4:
+            raise SystemExit("- Error: bounding box must be "
+                             "lat1,lon1,lat2,lon2")
+        lat1, lon1, lat2, lon2 = (
+            float(_np.degrees(dms_to_rad(v))) for v in parts)
+        # upper-left then lower-right: lat1 must be north of lat2 and
+        # lon1 west of lon2 (plot-box-ew / plot-box-ns CI tests)
+        if lat1 <= lat2:
+            raise SystemExit("- Error: bounding box latitudes must run "
+                             "north to south (upper-left, lower-right)")
+        if lon1 >= lon2:
+            raise SystemExit("- Error: bounding box longitudes must run "
+                             "west to east (upper-left, lower-right)")
+        return (lat1, lon1, lat2, lon2)
+
+    def _copy_net_with_adjusted(net, res):
+        import copy
+        out = copy.copy(net)
+        out.lat = res.lat.copy()
+        out.lon = res.lon.copy()
+        out.height = res.height.copy()
+        return out
+
+    def _cmd_plot(a):
+        import pickle
+        from . import project
+        net = project.load_network(getattr(a, 'input_folder', '') or
+                                   a.output_folder, a.network_name)
+        base = os.path.join(a.output_folder, a.network_name)
+        in_base = os.path.join(getattr(a, "input_folder", "") or
+                               a.output_folder, a.network_name)
+        seg = None
+        seg_file = f"{base}.seg.pkl"
+        if not os.path.exists(seg_file):
+            seg_file = f"{in_base}.seg.pkl"
+        if os.path.exists(seg_file):
+            from .segment import Segmentation
+            seg = Segmentation.load(seg_file)
+        from .output.plot import plot_network, plot_segmentation_graph
+        ext = "png" if a.export_png else "pdf"
+        if (a.phased or a.phased_block_view or a.block_number or
+                a.segmentation_graph) and seg is None:
+            print(f"- Error: no segmentation found for {a.network_name}; "
+                  f"run segment first", file=sys.stderr)
+            return 1
+        if a.segmentation_graph and seg is not None:
+            out = a.output or f"{base}.seg.{ext}"
+            plot_segmentation_graph(out, seg)
+            print(f"+ Wrote {out}")
+            return 0
+        if a.supress_pdf_creation:
+            print("+ Map output suppressed (--supress-pdf-creation)")
+            return 0
+        res = None
+        initial = None
+        res_file = f"{base}.results.pkl"
+        _needs_res = (a.error_ellipses or a.positional_uncertainty or
+                      a.correction_arrows or a.label_corrections)
+        if _needs_res and not os.path.exists(res_file) and \
+                not os.path.exists(f"{in_base}.results.pkl"):
+            print(f"- Error: no adjustment results found for "
+                  f"{a.network_name}; run adjust first", file=sys.stderr)
+            return 1
+        if not os.path.exists(res_file):
+            res_file = f"{in_base}.results.pkl"
+        if os.path.exists(res_file):
+            with open(res_file, "rb") as f:
+                res = pickle.load(f)
+            if a.correction_arrows or a.label_corrections:
+                if getattr(res, "initial_xyz", None) is not None:
+                    from .geodesy.conversions import cart_to_geo as _c2g
+                    la0, lo0, _h0 = _c2g(res.initial_xyz[:, 0],
+                                         res.initial_xyz[:, 1],
+                                         res.initial_xyz[:, 2],
+                                         net.datum.ellipsoid)
+                    initial = (la0, lo0)
+                else:
+                    initial = (net.lat, net.lon)
+                net = _copy_net_with_adjusted(net, res)
+        if a.phased_block_view and seg is not None:
+            outs = []
+            for b in range(seg.block_count):
+                out_b = f"{base}.block{b + 1}.{ext}"
+                plot_network(
+                    out_b, net, res=res, seg=seg,
+                    show_ellipses=a.error_ellipses and res is not None,
+                    msr_types=a.plot_msr_types,
+                    omit_measurements=a.omit_measurements,
+                    msr_line_width=a.msr_line_width,
+                    label_stations=a.label_stations,
+                    label_font_size=a.label_font_size,
+                    block_number=b + 1,
+                    omit_title_block=a.omit_title_block,
+                    title=f"{a.title or a.network_name} block {b + 1}",
+                    alternate_name=a.alternate_name)
+                outs.append(out_b)
+            print(f"+ Wrote {len(outs)} block maps "
+                  f"({outs[0]} .. {outs[-1]})")
+            if ext == "pdf":
+                # aggregate per-block pages into one document (the
+                # reference pdfunites its GMT block plots,
+                # dnaplot.hpp:111 CreateGMTPlot aggregation)
+                from .output.plot import aggregate_pdfs
+                combined = f"{base}.blocks.pdf"
+                aggregate_pdfs(combined, net, seg, res=res,
+                               title=a.title or a.network_name)
+                print(f"+ Wrote {combined}")
+            return 0
+        plates = None
+        if a.plate_boundary_file:
+            if not os.path.exists(a.plate_boundary_file):
+                print(f"- Error: plate boundary file "
+                      f"'{a.plate_boundary_file}' does not exist",
+                      file=sys.stderr)
+                return 1
+            from .reftran.plates import read_plate_boundaries
+            plates = read_plate_boundaries(a.plate_boundary_file)
+        out = a.output or f"{base}.{ext}"
+        plot_network(
+            out, net, res=res, seg=seg,
+            show_ellipses=a.error_ellipses and res is not None,
+            show_pu=a.positional_uncertainty and res is not None,
+            show_corrections=a.correction_arrows and initial is not None,
+            initial_coords=initial,
+            msr_types=a.plot_msr_types,
+            omit_measurements=a.omit_measurements,
+            plot_ignored=a.plot_ignored_msrs,
+            msr_line_width=a.msr_line_width,
+            label_stations=a.label_stations,
+            label_constraints=a.label_constraints,
+            label_corrections=a.label_corrections,
+            label_font_size=a.label_font_size,
+            block_number=a.block_number,
+            omit_title_block=a.omit_title_block,
+            title=a.title or None,
+            ellipse_magnify=a.scale_ellipse_circles,
+            arrow_magnify=a.scale_arrows,
+            alternate_name=a.alternate_name,
+            centre=_plot_centre(a, net),
+            area_radius_m=a.area_radius,
+            bounding_box=_plot_bbox(a.bounding_box),
+            org_unit=a.org_unit_name, org_subunit=a.org_subunit_name,
+            plate_boundaries=plates)
+        print(f"+ Wrote {out}")
+        return 0
+    p.set_defaults(func=_cmd_plot)
+
     p = sub.add_parser("metadata",
                        help="dump network store metadata (binary-file "
                             "metadata utility analogue)")
@@ -1805,6 +2104,24 @@ def main(argv=None) -> int:
         from . import project
         from collections import Counter
         from .io_formats.dna import GpsCluster, DirectionSet
+        if a.network_name.endswith((".bst", ".bms")):
+            # reference binary file: dump its binary_file_meta_t header
+            # (the metadata utility's role, SURVEY §2.1)
+            from .io_formats.binary import read_bst, read_bms
+            reader = read_bst if a.network_name.endswith(".bst") else \
+                read_bms
+            _, meta = reader(a.network_name)
+            PAD = 35
+            print(f"{'File:':<{PAD}}{a.network_name}")
+            for k in ("bin_count", "reduced", "modified_by", "epsg",
+                      "epoch", "observation_epoch", "reftran", "geoid"):
+                print(f"{k + ':':<{PAD}}{meta[k]}")
+            for (fn, ep, e1, e2, ft, dt) in meta["input_files"]:
+                print(f"{'input file:':<{PAD}}{fn} (epsg {ep}, "
+                      f"epoch {e1}, type {ft}/{dt})")
+            for fn in meta["source_files"]:
+                print(f"{'source file:':<{PAD}}{fn}")
+            return 0
         net = project.load_network(getattr(a, 'input_folder', '') or
                                    a.output_folder, a.network_name)
         PAD = 35

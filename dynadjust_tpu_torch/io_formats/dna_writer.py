@@ -62,8 +62,10 @@ def _ang_cols(rad: float) -> str:
         m -= 60
         d += 1
     sign = "-" if neg else ""
-    # v3.01 angular columns: degrees (76,4), minutes (80,2), seconds (82,8)
-    return f"{sign + str(d):>3} {m:02d}{s:>8.4f}"
+    # v3.01 angular columns: degrees (76,4), minutes (80,2), seconds (82,8);
+    # the seconds keep two whole digits ("00.4779"), which the reader
+    # needs: it reads one whole digit as the tens of seconds
+    return f"{sign + str(d):>3} {m:02d} {s:07.4f}"
 
 
 def write_dna_msr(path: str, net):

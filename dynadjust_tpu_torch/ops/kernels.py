@@ -1,6 +1,6 @@
 """Build and load the package's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+Each CUDA source (``csrc/*.cu``) is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with ``ctypes`` — seconds per source, where a build against PyTorch's
 headers takes minutes.  Libraries go to ``_build/`` beside the package

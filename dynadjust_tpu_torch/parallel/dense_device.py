@@ -1,22 +1,42 @@
 """Dense normal-equation solve on the device with a Newton-refined inverse.
 
-The CLI's simultaneous mode (``adjust --tpu``) needs the full inverse of
-the (unity-scaled) normals for variance propagation — the reference's
-dpotrf+dpotri (Solve, dnaadjust.cpp:6586).  mm-level geodesy demands
-float64-quality results; this module factors in float32 with the
+The CLI's simultaneous mode (``adjust --tpu``) and the per-block solves of
+the sequential phased sweeps (``adjust --block1-phased --tpu``) need the
+full inverse of the (unity-scaled) normals for variance propagation — the
+reference's dpotrf+dpotri (Solve, dnaadjust.cpp:6586).  mm-level geodesy
+demands float64-quality results; this module factors in float32 with the
 Cholesky-inverse kernel (ops/chol_inv.py, one (1, n) system) and then
-runs Newton iterations for the inverse in float64,
+runs Newton–Schulz rounds for the inverse in float64,
 
     X <- X (2I - N X),
 
-which squares the relative error each step: ~kappa*1e-7 after the f32
-inverse, ~1e-13 after two steps for unity-scaled normals.  N crosses to
-the device once; the inverse and the corrections come back.
+which square the residual R = N X - I each round.  N crosses to the
+device once; the inverse and the corrections come back.
 
 Port of the JAX package's ``parallel/dense_device.py::dense_solve_device``.
 The JAX package factors this system with its jnp tiled recursion; here it
 is the same hand-written kernel as the blocked path's level 1 on a CUDA
 tensor, and its plain PyTorch version on a CPU tensor.
+
+The rounds are residual-driven where the JAX package takes two fixed
+ones.  Two suffice when the float32 inverse starts near kappa * 1e-7 of
+the identity and kappa is small (the dense normals of a whole network).
+The block-1 normals of the phased sweeps are weakly constrained: on a
+10 x 10 network their scaled condition number is near 1.5e7, and two
+rounds leave the solution about 1.5e-4 m off the float64 host solve.
+So the rounds are those of the blocked path's refinement
+(parallel/schur.py::_newton_loop): each reads max|I - N X| off the
+product N X it forms anyway, in float64, and the loop goes on while a
+round still halves it, from at least the two rounds of the JAX package
+(so that where two suffice the solve does not stop short of them) to
+12, the cap of the device refined solve.  It stops on the residual
+alone, with no fixed tolerance: the residual's floor is about
+kappa * 1e-16, so a tolerance such as 1e-12 would never be met on such
+a block.  Unlike the blocked path's rounds, these do not symmetrise the
+iterate after each round, as the JAX package's do not: on those block-1
+normals a symmetrised iterate stalls near 5e-5 where the plain rounds
+reach 4e-10 (the 10 x 10 network of tests/test_torch_block1.py, on a
+CPU), so X is symmetrised once, at the end.
 """
 
 from __future__ import annotations
@@ -27,13 +47,22 @@ from torch.profiler import record_function
 
 from ..ops.chol_inv import batched_cholesky_inverse
 
+MIN_ROUNDS = 2
+MAX_ROUNDS = 12
 
-def dense_solve_device(N, rhs, scale_to_unity: bool = True,
-                       newton: int = 2, device="cuda"):
+
+def dense_solve_device(N, rhs, scale_to_unity: bool = True, device="cuda",
+                       record=None):
     """Solve N dx = rhs and return (Ninv, dx) as float64 numpy arrays,
     both f64-quality, computed on `device`.  Raises
     torch.linalg.LinAlgError when the float32 factor meets a pivot that
-    is not positive."""
+    is not positive.
+
+    record: a list that gets {"n", "rounds", "residual"} of this call
+    appended: the Newton rounds taken (MIN_ROUNDS to MAX_ROUNDS, as the
+    module docstring sets out) and the residual max|I - Ns X| after the
+    last (Ns the scaled normals)."""
+    from .schur import _newton_loop
     dev = torch.device(device)
     N64 = torch.as_tensor(np.asarray(N, dtype=np.float64), device=dev)
     rhs64 = torch.as_tensor(np.asarray(rhs, dtype=np.float64), device=dev)
@@ -55,14 +84,15 @@ def dense_solve_device(N, rhs, scale_to_unity: bool = True,
         Linv = Linv[0]
         X = (Linv.transpose(0, 1) @ Linv).to(torch.float64)
         del Linv
-        eye2 = 2.0 * torch.eye(n, dtype=torch.float64, device=dev)
-        for _ in range(newton):
-            # Newton-Schulz: X <- X (2I - Ns X), float64
-            X = X @ (eye2 - Ns @ X)
-        # symmetrise (Newton iterates drift asymmetric at roundoff level)
+        # Newton-Schulz X <- X (2I - Ns X) in float64, then symmetrised
+        # (the iterates drift asymmetric at roundoff level)
+        X, rounds, resid = _newton_loop(X, Ns, torch.matmul, MAX_ROUNDS,
+                                        0.0, MIN_ROUNDS, symmetrise=False)
         X = 0.5 * (X + X.transpose(0, 1))
         if s is not None:
             X = X * s[:, None] * s[None, :]
         dx = X @ rhs64
+    if record is not None:
+        record.append({"n": int(n), "rounds": rounds, "residual": resid})
     return (X.cpu().numpy().astype(np.float64, copy=False),
             dx.cpu().numpy().astype(np.float64, copy=False))

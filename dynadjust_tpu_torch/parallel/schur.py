@@ -183,15 +183,17 @@ def _scatter_junction_matrix(S_b, jmap, nj_total):
 def _block_matvec(bs: BlockSystem, xi, xj):
     """y = N x for the blocked system, in float64 on the host, from its
     host (numpy) normals pools.  Junction rows accumulate across blocks
-    (the same scatter structure as the Schur reduction).  The JAX
-    package's native C++ kernel for the block products is not ported:
-    these are numpy matmuls."""
+    (the same scatter structure as the Schur reduction).  The block
+    products are numpy matmuls (multithreaded BLAS), where the JAX
+    package calls its C++ library: the port's copy of that library
+    (ops/native.block_matvec) is no faster than numpy on the card's host
+    and, right after a BLAS call, several times slower, its threads
+    competing with BLAS's spinning ones (PERF.md, native cell)."""
+    from ..ops.native import block_matvec_plain
     xj_pad = np.concatenate([xj, [0.0]])     # scratch slot for padded maps
     xj_b = xj_pad[bs.jmap] * bs.jmask
-    yi = (np.matmul(bs.Nii, xi[:, :, None])[:, :, 0]
-          + np.matmul(bs.Nij, xj_b[:, :, None])[:, :, 0])
-    yj_b = (np.matmul(xi[:, None, :], bs.Nij)[:, 0, :]
-            + np.matmul(bs.Njj, xj_b[:, :, None])[:, :, 0]) * bs.jmask
+    yi, yj_b = block_matvec_plain(bs.Nii, bs.Nij, bs.Njj, xi, xj_b)
+    yj_b = yj_b * bs.jmask
     yj = np.zeros(bs.nj_global + 1)
     np.add.at(yj, bs.jmap.reshape(-1), yj_b.reshape(-1))
     return yi * bs.imask, yj[:bs.nj_global]
@@ -279,15 +281,17 @@ def _schur_apply_inv_core(Ainv, Y, Sinv, di, dj, djg, Nij_s, bi, bj,
     return xi, xj * djg
 
 
-def _newton_loop(A0, Nb, mm, max_rounds, tol):
-    """Residual-driven Newton–Schulz A ← A(2I − N·A).
+def _newton_loop(A0, Nb, mm, max_rounds, tol, min_rounds=0,
+                 symmetrise=True):
+    """Residual-driven Newton–Schulz A ← A(2I − N·A), with A symmetrised
+    after each round unless symmetrise is False.
 
     Each round carries the live inverse residual err = max|I − N·A|; the
-    loop stops at err ≤ tol, at max_rounds, or when a round stops halving
-    the residual.  Returns (A, rounds_used, err_final) — the measured
-    accuracy of the refined inverse is evidence, not an assumption (the
-    rigour bar of the reference's f64 dpotri,
-    dnamatrix_contiguous.cpp:996-1006)."""
+    loop stops at err ≤ tol, at max_rounds, or, once min_rounds are
+    taken, when a round stops halving the residual.  Returns (A,
+    rounds_used, err_final) — the measured accuracy of the refined
+    inverse is evidence, not an assumption (the rigour bar of the
+    reference's f64 dpotri, dnamatrix_contiguous.cpp:996-1006)."""
     n = A0.shape[-1]
     eye = torch.eye(n, dtype=torch.float64, device=A0.device)
     eye2 = 2.0 * eye
@@ -299,9 +303,11 @@ def _newton_loop(A0, Nb, mm, max_rounds, tol):
     A = A0.to(torch.float64)
     T, err = measure(A)
     prev, k = np.inf, 0
-    while k < max_rounds and err > tol and err < 0.5 * prev:
+    while (k < max_rounds and err > tol
+           and (k < min_rounds or err < 0.5 * prev)):
         A = mm(A, T)
-        A = 0.5 * (A + A.transpose(-1, -2))
+        if symmetrise:
+            A = 0.5 * (A + A.transpose(-1, -2))
         prev = err
         T, err = measure(A)
         k += 1

@@ -5,11 +5,12 @@ discontinuity files), adjust's report and export flags (JSON, SINEX,
 DynaML) and the SINEX and DynaML inputs run through both CLIs in-process
 on the same seeded 8 x 8 DNA files (the port with --device cpu); the
 saved networks and the written files must agree (below the lines that
-carry the run's date or the package's name).  A flag or input whose
-module the port does not hold exits non-zero naming its ROADMAP item,
-and adjust --tpu or dynadjust --tpu without --device cpu exits non-zero
-when no card is present, before writing anything, while the host route
-runs without a card.
+carry the run's date or the package's name; DNA measurement files with
+their angles' seconds as the port writes them).  --devices, the one
+flag whose module the port does not hold, exits non-zero naming its
+ROADMAP item, and adjust --tpu or dynadjust --tpu without --device cpu
+exits non-zero when no card is present, before writing anything, while
+the host route runs without a card.
 """
 
 import json
@@ -25,6 +26,7 @@ from dynadjust_tpu.cli import main as jax_main
 from dynadjust_tpu.io_formats.dna_writer import write_dna_msr, write_dna_stn
 from dynadjust_tpu.utils.synthetic_mixed import synthetic_mixed_network
 from dynadjust_tpu_torch.cli import main as torch_main
+from test_torch_dna import zero_padded_seconds
 
 MARKER = "Number of unknown parameters"
 
@@ -66,8 +68,12 @@ def _net(folder):
 
 
 def _body(path):
-    """A written file without its header lines (title, dates, paths)."""
+    """A written file without its header lines (title, dates, paths); a
+    DNA measurement file with its angles' seconds as the port writes
+    them."""
     lines = path.read_text().splitlines()
+    if path.name.endswith(".msr"):
+        lines = list(map(zero_padded_seconds, lines))
     return [ln for ln in lines
             if not ln.startswith(("!#=DNA", "*", "File ", "Command"))]
 
@@ -224,9 +230,7 @@ def test_sinex_and_dynaml_inputs_agree(dna, tmp_path, ext):
 
 
 UNPORTED = {
-    "import": [(["--simulate"], "M8b"), (["--export-bst-bms"], "M8b")],
-    "adjust": [(["--phased", "--tpu", "--devices", "2"], "M7"),
-               (["--block1-phased", "--tpu"], "M9")],
+    "adjust": [(["--phased", "--tpu", "--devices", "2"], "M7")],
     "dynadjust": [(["--phased", "--tpu", "--devices", "2"], "M7")],
 }
 CASES = [(verb, flags, item) for verb, rows in UNPORTED.items()
@@ -240,14 +244,10 @@ def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
     if verb == "adjust":
         assert _import(torch_main, tmp_path / "w", dna, []) == 0
         argv = ["adjust", "n", *flags, "--device", "cpu"]
-    elif verb == "dynadjust":
+    else:
         (tmp_path / "w").mkdir()
         argv = ["dynadjust", "-n", "n", str(dna / "n.stn"),
                 str(dna / "n.msr"), *flags, "--device", "cpu"]
-    else:
-        (tmp_path / "w").mkdir()
-        argv = ["import", "-n", "n", str(dna / "n.stn"),
-                str(dna / "n.msr"), *flags]
     capsys.readouterr()
     assert torch_main([*argv, "--output-folder", str(tmp_path / "w")]) == 1
     err = capsys.readouterr().err
@@ -256,27 +256,8 @@ def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
         assert not list((tmp_path / "w").iterdir())
 
 
-@pytest.mark.parametrize("ext", [".bst", ".bms", ".jsonl"])
-def test_unported_inputs_exit_nonzero(tmp_path, capsys, ext):
-    path = tmp_path / f"in{ext}"
-    path.write_text("")
-    assert torch_main(["import", "-n", "n", str(path),
-                       "--output-folder", str(tmp_path)]) == 1
-    assert "ROADMAP.md M8b" in capsys.readouterr().err
-
-
-def test_metadata_of_binary_file_is_refused(tmp_path, capsys):
-    """metadata reads the network store; the reference's binary files
-    (.bst, .bms) wait for their reader (ROADMAP.md M8b)."""
-    path = tmp_path / "x.bst"
-    path.write_bytes(b"")
-    assert torch_main(["metadata", str(path)]) == 1
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md M8b" in err, err
-
-
 @pytest.mark.parametrize("route", [
-    ["--tpu"], ["--phased", "--tpu"],
+    ["--tpu"], ["--phased", "--tpu"], ["--block1-phased", "--tpu"],
     ["--phased", "--tpu", "--tpu-super-blocks", "2"],
     ["dynadjust", "--phased", "--tpu"]])
 def test_adjust_without_card_exits_nonzero(dna, tmp_path, capsys, route):
@@ -293,7 +274,7 @@ def test_adjust_without_card_exits_nonzero(dna, tmp_path, capsys, route):
         assert not list((tmp_path / "w").iterdir())
         return
     assert _import(torch_main, tmp_path / "w", dna, []) == 0
-    if "--phased" in route:
+    if route[0] != "--tpu":
         assert torch_main(["segment", "n", "--min-inner-stns", "10",
                            "--max-block-stns", "20",
                            "--output-folder", str(tmp_path / "w")]) == 0

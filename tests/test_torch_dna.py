@@ -72,7 +72,8 @@ def test_measurement_records_equal(files):
 
 def test_writers_write_the_same_records(files, tmp_path):
     """The port's writers on the port's copy of the network give the JAX
-    writers' files, but for the comment naming the package."""
+    writers' files, but for the comment naming the package and the
+    angles' seconds, which the port writes with two whole digits."""
     d, net = files
     tnet = from_reference(net)
     for kind in ("stn", "msr"):
@@ -82,7 +83,40 @@ def test_writers_write_the_same_records(files, tmp_path):
         jl = (d / f"n.{kind}").read_text().splitlines()
         assert tl[0] == jl[0]
         assert tl[1].startswith("*") and "dynadjust_tpu_torch" in tl[1]
+        if kind == "msr":
+            jl = [zero_padded_seconds(ln) for ln in jl]
         assert tl[2:] == jl[2:]
+
+
+def zero_padded_seconds(line):
+    """A DNA angular measurement line with its seconds written as the
+    port's writer writes them, with two whole digits ("00.4779" where the
+    JAX writer writes " 0.4779", which its reader misreads as 04.779")."""
+    if len(line) >= 90 and line[0] in "ABDIJKPQVZ":
+        return f"{line[:82]} {float(line[82:90]):07.4f}{line[90:]}"
+    return line
+
+
+@pytest.mark.parametrize("seconds", [0.4779, 5.1234, 12.3456])
+def test_angle_seconds_read_back(tmp_path, seconds):
+    """An angle written by the port's writer reads back, within the
+    file's 1e-4", through both packages' readers.  The JAX writer pads
+    seconds below 10 with a space, and its reader (the port's too) takes
+    a one-digit "0.4779" as 04.779": angles whose seconds are below 1
+    come back wrong from the JAX writer's files (ROADMAP.md F8)."""
+    jnet, _ = synthetic_mixed_network(3, 3, block_rows=3, block_cols=3,
+                                      seed=0)
+    jnet.measurements = [r for r in jnet.measurements if r.mtype == "A"]
+    value = np.radians(269.0 + 59.0 / 60.0 + seconds / 3600.0)
+    jnet.measurements[0].value = value
+    twriter.write_dna_msr(str(tmp_path / "t.msr"), from_reference(jnet))
+    jwriter.write_dna_msr(str(tmp_path / "j.msr"), jnet)
+    sec = np.radians(1.0 / 3600.0)
+    for read in (tdna.read_dna_msr, jdna.read_dna_msr):
+        got = read(str(tmp_path / "t.msr"))[0][0].value
+        assert abs(got - value) < 1e-4 * sec
+        got = read(str(tmp_path / "j.msr"))[0][0].value
+        assert (abs(got - value) > sec) == (seconds < 1.0)
 
 
 UTM = [  # name, easting, northing, height, zone (southern hemisphere)

@@ -279,3 +279,38 @@ def test_dynadjust_pipeline_on_card_matches_cpu(cuda, tmp_path):
     assert np.abs(g.xyz - c.xyz).max() <= 1e-7
     assert abs(g.sigma_zero - c.sigma_zero) <= 1e-9
     assert launches["cuda"] > 0 and launches["cpu"] == 0
+
+
+@pytest.mark.gpu
+def test_block1_on_card_matches_cpu(cuda, tmp_path):
+    """adjust --block1-phased --tpu on a 24 x 24 network on the card and
+    with --device cpu: the same status, xyz within 1e-8 m, and on the
+    card one kernel launch per block, each solve's Newton residual below
+    1e-8."""
+    import pickle
+    from dynadjust_tpu_torch.cli import main
+    from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
+                                                           write_dna_stn)
+    net, _ = synthetic_mixed_network(24, 24, block_rows=12, block_cols=12)
+    write_dna_stn(str(tmp_path / "n.stn"), net)
+    write_dna_msr(str(tmp_path / "n.msr"), net)
+    res, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        out.mkdir()
+        common = ["--output-folder", str(out)]
+        assert main(["import", "-n", "n", str(tmp_path / "n.stn"),
+                     str(tmp_path / "n.msr"), *common]) == 0
+        assert main(["segment", "n", "--min-inner-stns", "100",
+                     "--max-block-stns", "200", *common]) == 0
+        before = batched_cholesky_inverse.launches
+        assert main(["adjust", "n", "--block1-phased", "--tpu", "--device",
+                     dev, *common]) == 0
+        launches[dev] = batched_cholesky_inverse.launches - before
+        with open(out / "n.results.pkl", "rb") as f:
+            res[dev] = pickle.load(f)
+    g, c = res["cuda"], res["cpu"]
+    assert g.status == c.status and g.status.startswith("Estimates solved")
+    assert np.abs(g.xyz - c.xyz).max() <= 1e-8
+    assert launches["cuda"] == len(g.block_info) and launches["cpu"] == 0
+    assert all(r["residual"] < 1e-8 for r in g.profile["newton"])

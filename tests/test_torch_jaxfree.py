@@ -4,11 +4,15 @@ The machine with the GPU has PyTorch but no JAX, and importing any module
 of the JAX package (even a numpy-only one) imports jax through
 dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
-chip_smoke, runs a small adjustment on the CPU, and checks that none of
-the three names was loaded; another runs `python -m dynadjust_tpu_torch`
-import, reftran, geoid, segment, adjust --phased --tpu --device cpu and
-the dynadjust pipeline verb under the same hook; a static check reads
-every import statement.
+chip_smoke (the host modules of binary, dbid and JSONL files, simulation,
+plots and the host kernel library by name), runs the host kernel library
+and a small adjustment on the CPU, and checks that none of the three
+names was loaded; another runs `python -m dynadjust_tpu_torch` import,
+reftran, geoid, segment, adjust --phased --tpu --device cpu, the
+dynadjust pipeline verb, import --simulate --export-bst-bms, an import of
+the binary pair, adjust --block1-phased --tpu --device cpu and metadata
+of a .bms file under the same hook; a static check reads every import
+statement.
 """
 
 import ast
@@ -38,6 +42,15 @@ _CHILD = textwrap.dedent("""
         dynadjust_tpu_torch.__path__, "dynadjust_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
+    for m in ("io_formats.binary", "io_formats.dbid", "io_formats.jsonl",
+              "network.simulate", "output.plot", "ops.native"):
+        assert "dynadjust_tpu_torch." + m in mods, m
+    import numpy as np
+    from dynadjust_tpu_torch.ops import native
+    B, n = 3, 4
+    y = native.block_matvec(*(np.ones(s) for s in (
+        (B, n, n), (B, n, 2), (B, 2, 2), (B, n), (B, 2))))
+    assert (y[0] == n + 2).all() and (y[1] == n + 2).all()
     import chip_smoke
     import torch
     torch.set_num_threads(2)
@@ -119,6 +132,13 @@ _CLI_CHILD = textwrap.dedent("""
                  ["geoid", "n", "-g", "g.gsb", "--convert-stn-hts"],
                  ["segment", "n", *seg],
                  ["adjust", "n", "--phased", "--tpu", "--device", "cpu"],
+                 ["import", "-n", "s", "n.stn", "n.msr", "--simulate"],
+                 ["import", "-n", "b", "n.stn", "n.msr", "--export-bst-bms"],
+                 ["import", "-n", "b", "b.bst", "b.bms"],
+                 ["segment", "b", *seg],
+                 ["adjust", "b", "--block1-phased", "--tpu", "--device",
+                  "cpu"],
+                 ["metadata", "b.bms"],
                  ["dynadjust", "-n", "p", "n.stn", "n.msr", *frame, "-g",
                   "g.gsb", "--convert-stn-hts", "--phased", "--tpu",
                   "--device", "cpu", *seg, "--output-json",
@@ -149,3 +169,6 @@ def test_cli_runs_without_jax(tmp_path):
     for ext in ("adj.jsonl", "snx", "adjusted.stn.xml"):
         assert (tmp_path / f"p.{ext}").exists(), ext
     assert (tmp_path / "dynadjust.log").read_text().count(" done ") == 5
+    assert (tmp_path / "s.simulated.msr").exists()
+    for ext in ("bst", "bms", "dbid", "phased-block1.adj"):
+        assert (tmp_path / f"b.{ext}").exists(), ext

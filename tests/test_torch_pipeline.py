@@ -43,6 +43,7 @@ from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
 from dynadjust_tpu_torch.network.data import from_reference
 from dynadjust_tpu_torch.utils.synthetic_geoid import (orthometric_levelling,
                                                        synthetic_geoid_grid)
+from test_torch_dna import zero_padded_seconds
 
 MARKER = "Number of unknown parameters"
 SEGMENT = ["--min-inner-stns", "20", "--max-block-stns", "40"]
@@ -145,10 +146,15 @@ def _same_networks(a, b):
 
 def _body(path):
     """A written file without the lines that carry the run's date, its
-    folder or the package's name."""
-    return [ln for ln in path.read_text().splitlines()
+    folder or the package's name; a DNA measurement file with its
+    angles' seconds as the port writes them."""
+    lines = path.read_text().splitlines()
+    if path.name.endswith(".msr"):
+        lines = list(map(zero_padded_seconds, lines))
+    return [ln for ln in lines
             if not ln.startswith(("!#=DNA", "* Station file",
                                   "* Measurement file", "# "))]
+
 
 
 # reftran keeps the network's epoch label (the import's, 01.01.2020),
