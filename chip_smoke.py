@@ -68,9 +68,10 @@ script exits non-zero without printing a result):
      kernel once per block at (1, 3 n_b) and are held to the host route:
      saved xyz within 1e-6 m, .xyz numbers within 1e-4, the same status
      line.  Every device solve of the dense and block-1 routes (and of
-     the pipeline's --tpu route) prints its shape, Newton rounds and
-     last residual, and must take 2 to 12 rounds.  Each verb is timed,
-     write_adj on its own;
+     the pipeline's --tpu route) prints its Newton record: shape, route,
+     Newton rounds and last residual; each must take the kernel's route
+     (no float64 fallback on these well-conditioned systems) in 2 to 12
+     rounds.  Each verb is timed, write_adj on its own;
   9. pipeline: the reftran and geoid stages and the pipeline verb, on
      DNA files whose stations carry ellipsoidal heights (LLh) and whose
      level differences are orthometric for a seeded 1' NTv2 grid (N 3-7
@@ -111,14 +112,15 @@ script exits non-zero without printing a result):
      same stations and records with equal coordinates and values; bytes
      and seconds printed;
  11. kernel at every (B, n) that the CLI, pipeline and formats routes of
-     phases 8-10 launched it at (the dense (1, 3S), the block-1 systems
-     (1, 3 n_b), the level-1 blocks of the CLI's segmentation at 1,600
-     and 10,000 stations, and the level-2 systems of --tpu-super-blocks
-     2), with the gates of phase 2, each timed against the plain version
-     and the library;
+     phases 8-10 and the F9 routes launched it at (the dense (1, 3S), the
+     block-1 systems (1, 3 n_b), the level-1 blocks of the CLI's
+     segmentation at 1,600 and 10,000 stations, and the level-2 systems
+     of --tpu-super-blocks 2), with the gates of phase 2, each timed
+     against the plain version and the library;
  12. one {"kernels": [...]} line, the card line, and the result line.
 
-Host routes (run between phases 7 and 8; each adjustment prints its
+Host routes and the GNSS-only adjustment (run between phases 7 and 8;
+each adjustment of the host routes prints its
 DTA_PROFILE phases, the host residual operator's calls and seconds, the
 device memory peak and the host RSS peak so far):
 
@@ -141,8 +143,30 @@ device memory peak and the host RSS peak so far):
      (the device refined solve);
   native: the host kernel library's blocked matvec against its numpy
      version (the host loop's operator) at the 10k network's
-     host-assembly shapes, 1e-12 relative, seconds per call of each,
-     each timed alone and right after the other;
+     host-assembly shapes, and its GNSS baseline residuals against
+     theirs at the 10,000-station GNSS network's 29,601 baselines, 1e-12
+     relative, seconds per call of each, each timed alone and right
+     after the other;
+  gnss: the GNSS-only blocked adjustment (parallel/blocked_adjust.py,
+     assembly.py, device_adjust.py) on bench.py's network (BENCH_MODE=gnss
+     defaults: 64 x 64 stations, 12,033 baselines, 16 blocks) and on
+     100 x 100 stations in blocks of 25 (29,601 baselines, level 1 at
+     (16, 1875)), seed 7: build_plan, the device-resident Gauss-Newton
+     loop (DeviceAdjustment: setup = upload + one factorization, one
+     kernel launch, no jittered retry; counts zeroed just before and read
+     just after) held to the float64 adjust_blocked on the card (the same
+     iterations, xyz within 1e-6 m, max_corr <= 5e-4 m), the kernel's
+     status on the network's own scaled blocks, one step and 20 steps
+     with no host sync (CUDA events), the torch.profiler split of one
+     step, schur_solve_device with each DeviceSchurFactors method
+     ("inv", "chol", "inv64") against the float64 schur_solve (1e-9 of
+     the largest correction) with bench.py's factor + apply and
+     apply-only seconds, and the kernel held at the level-1 shape; then
+     ROADMAP.md F9's network (the 6 x 6 mixed network, import --simulate,
+     the simulated records imported, segment --min-inner-stns 10
+     --max-block-stns 20) through adjust --block1-phased on the host and
+     with --tpu (± staged): block 1 on the float64 route, named in the
+     Newton records, within 1e-6 m of the host route;
   cli (in phase 8): --phased --tpu --staged-adjustment
      --create-stage-files with and without --tpu-super-blocks 2, held
      also to their resident counterparts (.xyz within 1e-4, saved xyz
@@ -185,9 +209,19 @@ from dynadjust_tpu_torch.io_formats.dna_writer import (write_dna_msr,
                                                        write_dna_stn)
 from dynadjust_tpu_torch.adjust.device_assembly import DeviceAssembly
 from dynadjust_tpu_torch.parallel import schur, streamed
-from dynadjust_tpu_torch.parallel.schur import build_nested_partition
+from dynadjust_tpu_torch.parallel.assembly import build_plan
+from dynadjust_tpu_torch.parallel.blocked_adjust import (BlockedNetwork,
+                                                         adjust_blocked,
+                                                         build_normals)
+from dynadjust_tpu_torch.parallel.device_adjust import DeviceAdjustment
+from dynadjust_tpu_torch.parallel.schur import (DeviceSchurFactors,
+                                                build_nested_partition,
+                                                schur_solve,
+                                                schur_solve_device)
 from dynadjust_tpu_torch.segment import Segmentation
-from dynadjust_tpu_torch.utils.synthetic import grid_super_assignment
+from dynadjust_tpu_torch.utils.synthetic import (grid_segmentation,
+                                                 grid_super_assignment,
+                                                 synthetic_grid_network)
 from dynadjust_tpu_torch.utils.synthetic_mixed import synthetic_mixed_network
 from dynadjust_tpu_torch.utils.synthetic_geoid import (orthometric_levelling,
                                                        synthetic_geoid_grid)
@@ -957,50 +991,69 @@ def _cli_adjust(folder, name, extra):
     return res, secs, steps, launches, shapes, summary
 
 
-def _newton_lines(label, r):
-    """Print each device solve's shape, Newton rounds and last residual
-    of an adjust result (dense and block-1 routes) and hold the rounds
-    to 2..12: the solves' records."""
+def _newton_lines(label, r, allow_f64=False):
+    """Print the Newton records (res.profile["newton"]) of an adjust
+    result (dense and block-1 routes): each device solve's shape, route,
+    Newton rounds and last residual (and the float64 residual of a
+    fallback solve) and the profile's fallback count, which must match
+    the records.  Holds the kernel route's rounds to 2..12, and, unless
+    allow_f64, every solve to the kernel route: the records."""
     newton = (r.profile or {}).get("newton") or []
+    _say(f"  {label} newton records: {json.dumps(newton)}")
     for k, rec in enumerate(newton):
-        _say(f"  {label} device solve {k + 1}: (1, {rec['n']}), "
-             f"{rec['rounds']} Newton rounds, residual "
-             f"{rec['residual']:.3e}")
-    _check(all(2 <= x["rounds"] <= 12 for x in newton),
-           f"{label}: Newton rounds {[x['rounds'] for x in newton]}")
+        f64 = (f", float64 residual {rec['f64_residual']:.3e}"
+               if rec["route"] == "f64" else "")
+        _say(f"  {label} device solve {k + 1}: (1, {rec['n']}), route "
+             f"{rec['route']}, {rec['rounds']} Newton rounds, residual "
+             f"{rec['residual']:.3e}{f64}")
+    kernel = [x for x in newton if x["route"] == "kernel"]
+    if newton:
+        n_f64 = r.profile["f64_fallbacks"]
+        _say(f"  {label} float64 fallbacks: {n_f64} of {len(newton)}")
+        _check(n_f64 == len(newton) - len(kernel),
+               f"{label}: profile counts {n_f64} fallbacks")
+    _check(all(2 <= x["rounds"] <= 12 for x in kernel),
+           f"{label}: Newton rounds {[x['rounds'] for x in kernel]}")
+    _check(allow_f64 or len(kernel) == len(newton),
+           f"{label}: a solve took the float64 fallback")
     return newton
 
 
-def phase_block1(d, files, out, dev=()):
-    """adjust --block1-phased at 1,600 stations on the host and on the
-    device with and without staging, each after a fresh import and
-    segment: the device routes launch the kernel once per block, at
-    (1, 3 n_b), and are held to the host route.  dev: extra adjust
-    arguments (a CPU trial passes --device cpu)."""
-    res = {}
+def phase_block1(d, files, out, dev=(), name="n40", key="cli",
+                 size="40x40", segment=("300", "600"), allow_f64=False):
+    """adjust --block1-phased on the host and on the device with and
+    without staging, each after a fresh import of files and segment
+    --min-inner-stns/--max-block-stns segment: the device routes launch
+    the kernel once per block, at (1, 3 n_b), and are held to the host
+    route (saved xyz 1e-6 m, .xyz numbers 1e-4, the same status line).
+    Launches go to out under f"{key}_{route}"; allow_f64 lets a solve
+    take the float64 fallback.  dev: extra adjust arguments (a CPU trial
+    passes --device cpu).  Returns each device route's Newton records."""
+    res, records = {}, {}
     for route, extra in CLI_BLOCK1.items():
         f = d / route
         f.mkdir()
-        t_imp = _verb(f, "import", "-n", "n40", *files)[0]
-        t_seg = _verb(f, "segment", "n40", "--min-inner-stns", "300",
-                      "--max-block-stns", "600")[0]
+        t_imp = _verb(f, "import", "-n", name, *files)[0]
+        t_seg = _verb(f, "segment", name, "--min-inner-stns", segment[0],
+                      "--max-block-stns", segment[1])[0]
         r, t, steps, launches, shapes, summary = _cli_adjust(
-            f, "n40", [*extra, *dev])
+            f, name, [*extra, *dev])
         res[route] = r
-        out["launches"][f"cli_{route}"] = launches
-        out["shapes"][f"cli_{route}"] = list(shapes)
-        out["seconds"][f"40x40 {route}"] = {
+        out["launches"][f"{key}_{route}"] = launches
+        out["shapes"][f"{key}_{route}"] = list(shapes)
+        out["seconds"][f"{size} {route}"] = {
             "import": t_imp, "segment": t_seg, "adjust": t,
             "adjust_steps": steps}
-        _say(f"cli 40x40 {route}: import {t_imp:.2f} s, segment "
+        _say(f"{key} {size} {route}: import {t_imp:.2f} s, segment "
              f"{t_seg:.2f} s, adjust {t:.2f} s (steps {steps}); "
              f"{' | '.join(summary)}; chol_inv launches {launches} "
              f"{shapes}")
-        newton = _newton_lines(f"cli 40x40 {route}", r)
+        newton = _newton_lines(f"{key} {size} {route}", r, allow_f64)
         _check(r.status.startswith(B1_STATUS), f"{route}: {r.status}")
         if route == "host_block1":
             _check(launches == 0, "the host block-1 route runs no kernel")
             continue
+        records[route] = newton
         B = len(r.block_info)
         solved = sorted((1, x["n"]) for x in newton)
         launched = sorted(shp for shp, c in shapes.items()
@@ -1012,15 +1065,16 @@ def phase_block1(d, files, out, dev=()):
     for route in ("block1", "block1_staged"):
         r = res[route]
         dxyz = float(np.abs(r.xyz - host.xyz).max())
-        worst = _files_agree(d / route / "n40.xyz",
-                             d / "host_block1" / "n40.xyz", 1e-4)
-        _say(f"cli 40x40 {route} vs host_block1: status {r.status!r}, "
+        worst = _files_agree(d / route / f"{name}.xyz",
+                             d / "host_block1" / f"{name}.xyz", 1e-4)
+        _say(f"{key} {size} {route} vs host_block1: status {r.status!r}, "
              f"saved xyz {dxyz:.3e} m (<= 1e-6), .xyz numbers {worst:.1e} "
              f"(<= 1e-4)")
         _check(r.status == host.status, f"{route} status {r.status}")
         _check(dxyz <= 1e-6, f"{route} xyz vs host_block1 {dxyz}")
-    _check(any((d / "block1_staged" / "n40.mtx").iterdir()),
+    _check(any((d / "block1_staged" / f"{name}.mtx").iterdir()),
            "the staged block-1 route wrote its stage files")
+    return records
 
 
 def phase_cli(work, flat_iterations):
@@ -1511,17 +1565,10 @@ def phase_formats(work, ref, sizes=((40, 40), (100, 100)), dev=()):
     return out
 
 
-def phase_native(B, ni, nj, reps=4):
-    """The host kernel library's blocked matvec against its numpy version
-    (the host refinement loop's block products, schur._block_matvec) at
-    the 10k network's host-assembly shapes (B, ni, nj), float64 from a
-    seed: max relative difference, and seconds per call of each, first
-    each alone (reps calls in a row) and then in turns, each right
-    after the other (BLAS's threads still spinning)."""
-    rng = np.random.default_rng(0)
-    args = [rng.standard_normal(shp) for shp in (
-        (B, ni, ni), (B, ni, nj), (B, nj, nj), (B, ni), (B, nj))]
-    fns = {"native": native.block_matvec, "numpy": native.block_matvec_plain}
+def _alone_and_in_turns(fns, args, reps):
+    """Seconds per call of each function of fns on args: first each alone
+    (reps calls in a row), then in turns (each right after the other);
+    and the native function's last output."""
     times = {}
     for order in ("alone", "in turns"):
         seq = ([n for n in fns for _ in range(reps)] if order == "alone"
@@ -1533,6 +1580,24 @@ def phase_native(B, ni, nj, reps=4):
                 time.perf_counter() - t)
             if name == "native":
                 got = y
+    return times, got
+
+
+def phase_native(B, ni, nj, reps=4):
+    """The host kernel library against its numpy versions: the blocked
+    matvec (the host refinement loop's block products,
+    schur._block_matvec) at the 10k network's host-assembly shapes (B,
+    ni, nj), float64 from a seed, each alone and in turns, each right
+    after the other (BLAS's threads still spinning); and the GNSS baseline
+    residuals (parallel/assembly.assemble) at the 10,000-station GNSS
+    network of the gnss phase (29,601 baselines), each alone and in turns
+    (20 calls each).  Max relative difference and seconds per call."""
+    rng = np.random.default_rng(0)
+    args = [rng.standard_normal(shp) for shp in (
+        (B, ni, ni), (B, ni, nj), (B, nj, nj), (B, ni), (B, nj))]
+    times, got = _alone_and_in_turns(
+        {"native": native.block_matvec, "numpy": native.block_matvec_plain},
+        args, reps)
     want = native.block_matvec_plain(*args)
     rel = max(float(np.abs(g - w).max() / np.abs(w).max())
               for g, w in zip(got, want))
@@ -1541,7 +1606,262 @@ def phase_native(B, ni, nj, reps=4):
          f"of float64 operands), s per call: {json.dumps(times)}; max rel "
          f"difference {rel:.3e} (<= 1e-12)")
     _check(rel <= 1e-12, f"native block_matvec vs numpy {rel}")
-    return {"shape": [B, ni, nj], **times}
+
+    xyz, pairs, obs, var, x0, fixed = synthetic_grid_network(100, 100,
+                                                             seed=7)
+    args = (pairs, obs, x0)
+    rtimes, got = _alone_and_in_turns(
+        {"native": native.baseline_residuals,
+         "numpy": native.baseline_residuals_plain}, args, 20)
+    want = native.baseline_residuals_plain(*args)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    _say(f"native baseline_residuals at M = {len(pairs)} (10k GNSS), s per "
+         f"call (min, median, max of 20): " + json.dumps(
+             {k: [min(v), float(np.median(v)), max(v)]
+              for k, v in rtimes.items()})
+         + f"; max rel difference {rel:.3e} (<= 1e-12)")
+    _check(rel <= 1e-12, f"native baseline_residuals vs numpy {rel}")
+    return {"shape": [B, ni, nj], **times,
+            "baseline_residuals": {"M": len(pairs), **rtimes}}
+
+
+# the GNSS-only blocked adjustment (ROADMAP.md M5): bench.py's network
+# (BENCH_MODE=gnss at its defaults, 64 x 64 stations in blocks of 16) and
+# the 10k cell (100 x 100 in blocks of 25), both seed 7 as bench.py's,
+# free-station weight 0.01 (free SD 10 m) as bench.py's build_normals
+GNSS_NETS = {"4096": (64, 64, 16), "10k": (100, 100, 25)}
+GNSS_FREE_WEIGHT = 0.01
+GNSS_STEPS = 20                  # bench.py's device-only loop (_dev_loop)
+GNSS_XYZ_TOL = 1e-6              # device loop vs float64 adjust_blocked, m
+GNSS_SOLVE_REL = 1e-9            # schur_solve_device vs float64 schur_solve
+GNSS_METHODS = ("inv", "chol", "inv64")
+
+
+def _gnss_network(rows, cols, blk):
+    """bench.py's GNSS network: (BlockedNetwork, x0, true xyz)."""
+    xyz, pairs, obs, var, x0, fixed = synthetic_grid_network(rows, cols,
+                                                             seed=7)
+    blocks, junction = grid_segmentation(rows, cols, blk, blk)
+    bn = BlockedNetwork(nstations=rows * cols, pairs=pairs, obs=obs,
+                        weight=1.0 / var, blocks=blocks,
+                        junction_stations=junction, constrained=fixed)
+    return bn, x0, xyz
+
+
+_STEP_GROUPS = (("scatter", r"index_add|indexFunc|scatter|index_put|put_"),
+                ("cublas", r"gemm|gemv|cublas|cutlass|xmma|sm90"),
+                ("gather", r"index|gather"))
+
+
+def _step_split(adj, x):
+    """torch.profiler split of one warm Gauss-Newton step's device time:
+    the Cholesky-inverse kernel (none: the factors are built at setup),
+    cuBLAS products, scatters (index_add_, index_put_), gathers and the
+    rest, with the five costliest device functions.  The profiled step
+    is the second of two in the profile, inside a "dta.gnss_step" range,
+    and a device function counts when the runtime call that launched it
+    lies in that range: in a process that has run profiles before, the
+    device functions of a profile's first launches may be missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    adj.step(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        adj.step(x)
+        torch.cuda.synchronize()
+        with record_function("dta.gnss_step"):
+            adj.step(x)
+        torch.cuda.synchronize()
+    ev = prof.events()
+    host = [e for e in ev if e.device_type == DeviceType.CPU]
+    step = next(e for e in host if e.name == "dta.gnss_step")
+    a, b = step.time_range.start, step.time_range.end
+    launch = {e.id: e.time_range.start for e in host
+              if e.name.startswith("cu")}
+    kern = _global_functions("chol_inv.cu")
+    split, by_name = {}, {}
+    for e in ev:
+        if (e.device_type != DeviceType.CUDA or e.name.startswith("dta.")
+                or not a <= launch.get(e.id, -1.0) <= b):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if any(re.search(rf"\b{k}\b", e.name) for k in kern):
+            group = "kernel"
+        else:
+            group = next((g for g, rx in _STEP_GROUPS
+                          if re.search(rx, e.name, re.I)), "other")
+        d = split.setdefault(group, {"ms": 0.0, "launches": 0})
+        d["ms"] += ms
+        d["launches"] += 1
+        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"groups": split, "device_ms": sum(v["ms"]
+                                              for v in split.values()),
+            "launches": sum(v["launches"] for v in split.values()),
+            "top": [[n, ms] for n, ms in top]}
+
+
+def phase_gnss(label, rows, cols, blk):
+    """The GNSS-only blocked adjustment on the card (bench.py's
+    bench_gnss split): build_plan; DeviceAdjustment's setup (upload and
+    one factorization: one kernel launch at (B, ni), so no jittered
+    retry) and run, counts zeroed just before and read just after, held
+    to the float64 adjust_blocked on the same card (the same iterations,
+    xyz within GNSS_XYZ_TOL m, max_corr <= 5e-4 m); the kernel's status on
+    the network's own scaled blocks; one warm step (CUDA events), 20
+    steps with no host sync, the torch.profiler split of one step; each
+    DeviceSchurFactors method through schur_solve_device against the
+    float64 schur_solve (GNSS_SOLVE_REL of the largest correction), with
+    bench.py's factor + apply and apply-only seconds per solve; the
+    kernel held at (B, ni).  Returns (launches, their shapes, record)."""
+    t_phase = time.perf_counter()
+    out = {}
+    bn, x0, truth = _gnss_network(rows, cols, blk)
+    t = time.perf_counter()
+    plan = build_plan(bn, GNSS_FREE_WEIGHT)
+    out["build_plan_s"] = time.perf_counter() - t
+    B, ni = len(bn.blocks), plan.ni
+    _say(f"gnss {label}: {bn.nstations} stations, {len(bn.pairs)} "
+         f"baselines, {B} blocks, level 1 at ({B}, {ni}), nj {plan.nj}, "
+         f"{plan.nj_global} junction parameters; build_plan "
+         f"{out['build_plan_s']:.3f} s")
+
+    batched_cholesky_inverse.launches = 0
+    batched_cholesky_inverse.shapes = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    adj = DeviceAdjustment(plan)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t
+    setup_launches = batched_cholesky_inverse.launches
+    t = time.perf_counter()
+    x, it, mc, hist = adj.run(x0)
+    out["run_s"] = time.perf_counter() - t
+    launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    out["device_memory_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    xr, itr, mcr, hr = adjust_blocked(bn, x0, device="cuda")
+    out["adjust_blocked_f64_s"] = time.perf_counter() - t
+    dx = float(np.abs(x - xr).max())
+    err = float(np.abs(x - truth).max())
+    out.update(iterations=it, max_corr=mc, history=hist, xyz_vs_f64=dx)
+    _say(f"gnss {label} DeviceAdjustment: setup {out['setup_s']:.3f} s, "
+         f"run {out['run_s']:.3f} s, {it} iterations (float64 "
+         f"adjust_blocked {itr}, {out['adjust_blocked_f64_s']:.3f} s), "
+         f"max_corr {mc:.3e} m, history {hist}, xyz vs float64 {dx:.3e} m "
+         f"(<= {GNSS_XYZ_TOL:g}), max|xyz - truth| {err:.4f} m; device "
+         f"memory peak {out['device_memory_peak_gb']:.2f} GB; chol_inv "
+         f"launches {launches} (setup {setup_launches}) {shapes}")
+    _check(np.isfinite(x).all() and x.shape == x0.shape, "finite xyz")
+    _check(it == itr, f"gnss {label}: {it} iterations, float64 {itr}")
+    _check(mc <= 5e-4, f"gnss {label}: max_corr {mc}")
+    _check(dx <= GNSS_XYZ_TOL, f"gnss {label}: xyz vs float64 {dx}")
+    _check(setup_launches == launches == 1 and list(shapes) == [(B, ni)],
+           f"gnss {label}: one launch at ({B}, {ni}) in setup, no "
+           f"jittered retry")
+
+    # the kernel's status on this network's own scaled level-1 blocks
+    Nii_s = schur._scaled_normals(*(a.float() for a in (
+        adj.Nii64, adj.Nij64, adj.Njj64)), adj.jmap, adj.jmask32,
+        adj.nj_total)[0]
+    Linv, status = batched_cholesky_inverse(Nii_s)
+    L64 = Linv.double()
+    eye = torch.eye(ni, dtype=torch.float64, device=adj.device)
+    resid = float((L64 @ Nii_s.double() @ L64.transpose(1, 2) - eye)
+                  .abs().max())
+    del Nii_s, Linv, L64
+    _say(f"gnss {label} kernel on the network's scaled blocks: status "
+         f"{status.tolist()}, max|Linv N Linv^T - I| {resid:.3e}")
+    _check(int(status.sum()) == 0, f"gnss {label}: kernel status")
+
+    xd = torch.as_tensor(x0, dtype=torch.float64, device=adj.device)
+    out["step_ms"] = _time_ms(lambda: adj.step(xd), reps=5)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    xk = xd
+    e0.record()
+    for _ in range(GNSS_STEPS):
+        xk, _ = adj.step(xk)
+    e1.record()
+    torch.cuda.synchronize()
+    out["loop_step_ms"] = e0.elapsed_time(e1) / GNSS_STEPS
+    out["step_split"] = _step_split(adj, xd)
+    _check(out["step_split"]["launches"] > 0,
+           f"gnss {label}: the step's profile shows its device functions")
+    _say(f"gnss {label} step: {out['step_ms']:.3f} ms (one, CUDA events), "
+         f"{out['loop_step_ms']:.3f} ms each of {GNSS_STEPS} with no host "
+         f"sync; device split of one step {json.dumps(out['step_split'])}")
+    del adj, xd, xk
+    torch.cuda.empty_cache()
+
+    bs = build_normals(bn, x0, GNSS_FREE_WEIGHT)
+    xi64, xj64 = schur_solve(bs, device="cuda")
+    scale = max(float(np.abs(xi64).max()), float(np.abs(xj64).max()))
+    out["solves"] = {}
+    for method in GNSS_METHODS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f = DeviceSchurFactors(bs, method=method)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        xi, xj, _ = schur_solve_device(bs, refine=2, factors=f)
+        rel = max(float(np.abs(xi - xi64).max()),
+                  float(np.abs(xj - xj64).max())) / scale
+        reps = 3
+        t = time.perf_counter()
+        for _ in range(reps):
+            f.refactor()
+            schur_solve_device(bs, refine=2, factors=f)
+        fa_s = (time.perf_counter() - t) / reps
+        t = time.perf_counter()
+        for _ in range(reps):
+            schur_solve_device(bs, refine=2, factors=f)
+        ap_s = (time.perf_counter() - t) / reps
+        out["solves"][method] = {"rel": rel, "setup_s": setup_s,
+                                 "factor_apply_s": fa_s, "apply_s": ap_s}
+        _say(f"gnss {label} schur_solve_device method {method}: vs float64 "
+             f"schur_solve {rel:.3e} of the largest correction "
+             f"({scale:.3e} m; <= {GNSS_SOLVE_REL:g}); setup {setup_s:.3f} "
+             f"s, per solve factor + apply {fa_s:.4f} s, apply-only "
+             f"{ap_s:.4f} s")
+        _check(rel <= GNSS_SOLVE_REL, f"gnss {label} {method}: {rel}")
+        del f
+        torch.cuda.empty_cache()
+
+    out["kernel"] = _hold_kernel(_spd(B, ni))[1]
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _say(f"gnss {label}: {out['seconds']:.2f} s")
+    return launches, shapes, out
+
+
+def phase_f9(work):
+    """ROADMAP.md F9's network through the CLI on the card: the 6 x 6 mixed
+    network (3 x 3 tiles) as DNA files, import --simulate, then
+    phase_block1 on the stations and the simulated records with segment
+    --min-inner-stns 10 --max-block-stns 20.  Block 1's scaled normals
+    (condition number 2.0e9) fail the float32 factor: each device route
+    must solve it on the float64 route and say so in its Newton
+    records."""
+    d = Path(work) / "f9"
+    d.mkdir()
+    net, _ = synthetic_mixed_network(6, 6, block_rows=3, block_cols=3)
+    files = [str(d / "n.stn"), str(d / "n.msr")]
+    write_dna_stn(files[0], net)
+    write_dna_msr(files[1], net)
+    _verb(d, "import", "-n", "n", *files, "--simulate")
+    out = {"launches": {}, "shapes": {}, "seconds": {}}
+    records = phase_block1(d, [files[0], str(d / "n.simulated.msr")], out,
+                           name="s", key="f9", size="6x6",
+                           segment=("10", "20"), allow_f64=True)
+    for route, newton in records.items():
+        _check(any(x["route"] == "f64" for x in newton),
+               f"f9 {route}: block 1 took the float64 route")
+    return out
 
 
 def main() -> int:
@@ -1622,6 +1942,13 @@ def main() -> int:
     _say(f"phase native: {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
+    gnss = {label: phase_gnss(label, *net)
+            for label, net in GNSS_NETS.items()}
+    with tempfile.TemporaryDirectory() as work:
+        f9 = phase_f9(work)
+    _say(f"phase gnss: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
     os.environ["DTA_PROFILE"] = "1"
     with tempfile.TemporaryDirectory() as work:
         clirun = phase_cli(work, flat.iterations)
@@ -1647,7 +1974,7 @@ def main() -> int:
     t = time.perf_counter()
     cli_paths = {}
     for path, shps in {**clirun["shapes"], **pipe["shapes"],
-                       **fmts["shapes"]}.items():
+                       **fmts["shapes"], **f9["shapes"]}.items():
         for shp in shps:
             cli_paths.setdefault(shp, []).append(path)
     kern_cli = {}
@@ -1684,14 +2011,20 @@ def main() -> int:
                              "nested_cold": launches_nested[0],
                              "nested_warm": launches_nested[1],
                              **host_launches, **clirun["launches"],
-                             **pipe["launches"], **fmts["launches"]},
+                             **pipe["launches"], **fmts["launches"],
+                             **{f"gnss_device_{label}": g[0]
+                                for label, g in gnss.items()},
+                             **f9["launches"]},
         **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
         "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],
                  **kern_cli[(b, n)]} for b, n in sorted(kern_cli)],
         "host_routes": [{"shape": [int(b), int(n)],
                          "paths": host_paths[(b, n)], **kern_host[(b, n)]}
-                        for b, n in sorted(kern_host)]}]}))
+                        for b, n in sorted(kern_host)],
+        "gnss": [{"shape": [int(b), int(n)],
+                  "paths": [f"gnss_device_{label}"], **g[2]["kernel"]}
+                 for label, g in gnss.items() for b, n in g[1]]}]}))
     _say(card_line())
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

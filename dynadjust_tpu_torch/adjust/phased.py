@@ -174,7 +174,8 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
     "cuda" (the Cholesky-inverse kernel) or "cpu" (its plain PyTorch
     version); without use_tpu they are host LAPACK and device is not
     used.  With use_tpu, result.profile["newton"] holds each block
-    solve's Newton rounds and residual."""
+    solve's Newton record and result.profile["f64_fallbacks"] the number
+    of them on the float64 fallback (parallel/dense_device.py)."""
     opts = options or AdjustmentOptions()
     t0 = time.time()
     newton = [] if opts.use_tpu else None
@@ -421,7 +422,9 @@ def adjust_phased(net: NetworkData, options: AdjustmentOptions | None = None,
         lat=net.lat.copy(), lon=net.lon.copy(), height=net.height.copy(),
         cov_xyz=cov, msr_stats=stats_rows, iteration_log=it_log,
         block_info=block_info, initial_xyz=initial_xyz, elapsed=time.time() - t0,
-        profile=None if newton is None else {"newton": newton})
+        profile=None if newton is None else {
+            "newton": newton,
+            "f64_fallbacks": sum(r["route"] == "f64" for r in newton)})
 
 
 def _block_normals(blk: Block):

@@ -334,13 +334,14 @@ def adjust_simultaneous(net: NetworkData,
     # wall-clock seconds per phase: setup (assembler, first fill and
     # normals), update_normals (re-linearisation: fill + normals), solve,
     # stats (final fill + measurement statistics); with use_tpu, each
-    # device solve's Newton rounds and residual
+    # device solve's Newton record and the number on the float64 fallback
     phases = {"setup": t_setup,
               "update_normals": prof["update_normals_ns"] / 1e9,
               "solve": prof["solve_ns"] / 1e9,
               "stats": _time.perf_counter() - _t_stats}
     if opts.use_tpu:
         phases["newton"] = newton
+        phases["f64_fallbacks"] = sum(r["route"] == "f64" for r in newton)
 
     dof = m_count - unknown_count
     sigma0 = chi_sq / dof if dof else 0.0

@@ -365,7 +365,9 @@ def adjust_tpu_blocked(net: NetworkData,
                 # device assembly: the f32 pools are already on the
                 # device; host assembly: only their f32 casts go up
                 if factors is None:
-                    factors = DeviceSchurFactors(bs, device=device)
+                    factors = DeviceSchurFactors(bs, method="inv",
+                                                 device_f64=False,
+                                                 device=device)
                 elif refactor:
                     factors.update(bs)
                 else:

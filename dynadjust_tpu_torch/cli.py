@@ -999,9 +999,10 @@ def _cmd_adjust(args) -> int:
     elapsed = time.time() - t0
     _step("adjust")
     if os.environ.get("DTA_PROFILE") and (res.profile or {}).get("newton"):
-        print("DTA_PROFILE device solves (n, Newton rounds, residual): "
-              + "  ".join(f"({r['n']}, {r['rounds']}, {r['residual']:.3e})"
-                          for r in res.profile["newton"]))
+        print("DTA_PROFILE device solves (n, Newton rounds, residual, "
+              "route): " + "  ".join(
+                  f"({r['n']}, {r['rounds']}, {r['residual']:.3e}, "
+                  f"{r['route']})" for r in res.profile["newton"]))
 
     if args.purge_stage_files:
         import shutil

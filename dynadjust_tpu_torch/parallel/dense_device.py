@@ -37,9 +37,27 @@ iterate after each round, as the JAX package's do not: on those block-1
 normals a symmetrised iterate stalls near 5e-5 where the plain rounds
 reach 4e-10 (the 10 x 10 network of tests/test_torch_block1.py, on a
 CPU), so X is symmetrised once, at the end.
+
+The float32 factor is the first try, not the only one.  When the kernel
+flags a pivot that is not positive, or the Newton rounds end with the
+residual above RESIDUAL_BOUND, the same scaled system is solved again on
+the same device in float64 with the library Cholesky
+(torch.linalg.cholesky_ex + torch.cholesky_inverse), then unscaled and
+applied to the rhs as before.  A simulated 6 x 6 network's 21 x 21
+block 1 (scaled condition number 2.0e9) needs it: its float32 factor
+meets a non-positive pivot, and with a jittered retry the Newton rounds
+stall near max|I - Ns X| = 0.5.  1e-6 lies far above every residual the
+kernel route has reached on a card (block 1 at most 9.4e-10, the dense
+1,600-station normals 1.3e-13) and far below that stall.  The record of
+each solve names its route, and every fallback raises a
+Float64FallbackWarning, so a network that leaves the kernel's route is
+seen in every run, not absorbed; the adjustments count the fallbacks in
+their result's profile ("f64_fallbacks").
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -49,19 +67,42 @@ from ..ops.chol_inv import batched_cholesky_inverse
 
 MIN_ROUNDS = 2
 MAX_ROUNDS = 12
+RESIDUAL_BOUND = 1e-6
+
+
+class Float64FallbackWarning(RuntimeWarning):
+    """A dense device solve left the float32 kernel's route for the
+    float64 library factor."""
+
+
+def _f64_inverse(Ns):
+    """Float64 inverse of the scaled normals from the library Cholesky;
+    raises torch.linalg.LinAlgError when Ns is not positive definite."""
+    L, info = torch.linalg.cholesky_ex(Ns)
+    X = torch.cholesky_inverse(L)
+    if int(info) or not bool(torch.isfinite(X).all()):
+        raise torch.linalg.LinAlgError(
+            f"dense solve: the {Ns.shape[0]}x{Ns.shape[0]} normals are not "
+            f"positive definite in float64")
+    return X
 
 
 def dense_solve_device(N, rhs, scale_to_unity: bool = True, device="cuda",
                        record=None):
     """Solve N dx = rhs and return (Ninv, dx) as float64 numpy arrays,
-    both f64-quality, computed on `device`.  Raises
-    torch.linalg.LinAlgError when the float32 factor meets a pivot that
-    is not positive.
+    both f64-quality, computed on `device`: the float32 kernel factor and
+    Newton rounds, or the float64 library factor when that route fails
+    (module docstring).  Raises torch.linalg.LinAlgError when the normals
+    are not positive definite in float64 either.
 
-    record: a list that gets {"n", "rounds", "residual"} of this call
-    appended: the Newton rounds taken (MIN_ROUNDS to MAX_ROUNDS, as the
-    module docstring sets out) and the residual max|I - Ns X| after the
-    last (Ns the scaled normals)."""
+    record: a list that gets {"n", "rounds", "residual", "route"} of this
+    call appended: the Newton rounds taken (MIN_ROUNDS to MAX_ROUNDS, 0
+    when the float32 factor met a non-positive pivot), the residual
+    max|I - Ns X| after the last (Ns the scaled normals; NaN without a
+    float32 factor), and the route of the returned inverse, "kernel" or
+    "f64"; an "f64" record also holds "f64_residual", max|I - Ns X| of
+    the float64 inverse.  The "f64" route also raises a
+    Float64FallbackWarning."""
     from .schur import _newton_loop
     dev = torch.device(device)
     N64 = torch.as_tensor(np.asarray(N, dtype=np.float64), device=dev)
@@ -77,22 +118,34 @@ def dense_solve_device(N, rhs, scale_to_unity: bool = True, device="cuda",
         with record_function("dta.chol_inv"):
             Linv, status = batched_cholesky_inverse(
                 Ns.to(torch.float32)[None])
-        if int(status[0]):
-            raise torch.linalg.LinAlgError(
-                f"dense solve: the float32 Cholesky factor of the {n}x{n} "
-                f"normals met a pivot that is not positive")
-        Linv = Linv[0]
-        X = (Linv.transpose(0, 1) @ Linv).to(torch.float64)
+        entry = {"n": int(n), "rounds": 0, "residual": float("nan"),
+                 "route": "kernel"}
+        if not int(status[0]):
+            Linv = Linv[0]
+            X = (Linv.transpose(0, 1) @ Linv).to(torch.float64)
+            # Newton-Schulz X <- X (2I - Ns X) in float64, symmetrised
+            # below (the iterates drift asymmetric at roundoff level)
+            X, entry["rounds"], entry["residual"] = _newton_loop(
+                X, Ns, torch.matmul, MAX_ROUNDS, 0.0, MIN_ROUNDS,
+                symmetrise=False)
         del Linv
-        # Newton-Schulz X <- X (2I - Ns X) in float64, then symmetrised
-        # (the iterates drift asymmetric at roundoff level)
-        X, rounds, resid = _newton_loop(X, Ns, torch.matmul, MAX_ROUNDS,
-                                        0.0, MIN_ROUNDS, symmetrise=False)
+        if not entry["residual"] <= RESIDUAL_BOUND:
+            with record_function("dta.dense_f64"):
+                X = _f64_inverse(Ns)
+                eye = torch.eye(n, dtype=torch.float64, device=dev)
+                entry["route"] = "f64"
+                entry["f64_residual"] = float((eye - Ns @ X).abs().max())
+            warnings.warn(
+                f"dense solve: the {n}x{n} normals took the float64 "
+                f"fallback (float32 kernel residual {entry['residual']:.3e} "
+                f"after {entry['rounds']} Newton rounds; float64 residual "
+                f"{entry['f64_residual']:.3e})", Float64FallbackWarning,
+                stacklevel=2)
         X = 0.5 * (X + X.transpose(0, 1))
         if s is not None:
             X = X * s[:, None] * s[None, :]
         dx = X @ rhs64
     if record is not None:
-        record.append({"n": int(n), "rounds": rounds, "residual": resid})
+        record.append(entry)
     return (X.cpu().numpy().astype(np.float64, copy=False),
             dx.cpu().numpy().astype(np.float64, copy=False))

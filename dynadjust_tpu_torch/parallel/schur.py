@@ -20,12 +20,21 @@ Port of the JAX package's ``parallel/schur.py`` on one device: factors
 are float32 explicit inverses (level-1 through the Cholesky-inverse
 kernel, ops/blocked_chol.py), every apply is a matmul, and float64
 residual refinement restores float64 accuracy — on the device
-(adjust/device_solve.py) or in the host loops of this module
+(adjust/device_solve.py, or DeviceSchurFactors with its float64 pools
+resident) or in the host loops of this module
 (schur_solve_device_refined, schur_solve_nested_factored) against the
-host operator _block_matvec or DeviceAssembly.matvec.  Blocks are padded
-to uniform shapes: identity padding on the diagonal keeps padded
-factorizations defined and the padded entries inert.  The host-streamed
-nested factors are in parallel/streamed.py.
+host operator _block_matvec or DeviceAssembly.matvec.  The GNSS-only
+adjustment (parallel/blocked_adjust.py, parallel/device_adjust.py) also
+reaches the flat solves the JAX package computes with its library
+Cholesky outside any kernel: schur_solve (float64 or float32),
+schur_solve_refined, SchurFactors / schur_solve_factored and
+DeviceSchurFactors' methods "chol" and "inv64" — here
+torch.linalg.cholesky and torch.cholesky_solve in the pools' dtype.
+Entry points run on the card unless the caller names another device.
+Blocks are padded to uniform shapes: identity padding on the diagonal
+keeps padded factorizations defined and the padded entries inert.  The
+host-streamed nested factors are in parallel/streamed.py; the
+multi-device (mesh) routes are not ported (ROADMAP.md M7).
 """
 
 from __future__ import annotations
@@ -180,6 +189,23 @@ def _scatter_junction_matrix(S_b, jmap, nj_total):
     return S + torch.diag(torch.where(diag == 0.0, 1.0, 0.0).to(S.dtype))
 
 
+MESH_REFUSAL = ("not ported to dynadjust_tpu_torch yet: mesh "
+                "(multi-device sharding, ROADMAP.md M7)")
+
+
+def _device(device) -> torch.device:
+    """The device of an entry point: the card unless the caller names
+    another."""
+    return torch.device("cuda" if device is None else device)
+
+
+def _put(x, device, dtype=None):
+    """A numpy array (or tensor) as a tensor on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def _block_matvec(bs: BlockSystem, xi, xj):
     """y = N x for the blocked system, in float64 on the host, from its
     host (numpy) normals pools.  Junction rows accumulate across blocks
@@ -251,16 +277,21 @@ def _junction_inverse(S_b, jmap, jmask, nj_total):
     return spd_inverse_rec_safe(S[None])[0]
 
 
+def _scaled_normals(Nii, Nij, Njj, jmap, jmask, nj_total):
+    """(Nii_s, Nij_s, Njj_s, di, dj, djg): the unity-scaled normals of a
+    factorization and their scale vectors."""
+    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total)
+    return (*_scaled(Nii, Nij, Njj, di, dj), di, dj, djg)
+
+
 def _schur_factor_inv(Nii, Nij, Njj, jmap, jmask, nj_total):
     """Explicit-inverse factorization (the reference's dpotrf+dpotri,
     dnamatrix_contiguous.cpp:963-1006): returns (Ainv, Y, Sinv, di, dj,
     djg, Nij_s), every later apply a matmul.  The level-1 factor is the
     Cholesky-inverse kernel (ops/blocked_chol.block_reduce)."""
     from ..ops.blocked_chol import block_reduce
-    zero_b = torch.zeros_like(Nii[..., 0])
-    zero_j = torch.zeros_like(Njj[..., 0])
-    Nii_s, Nij_s, Njj_s, _, _, di, dj, djg = _unity_scale(
-        Nii, Nij, Njj, zero_b, zero_j, jmap, jmask, nj_total)
+    Nii_s, Nij_s, Njj_s, di, dj, djg = _scaled_normals(
+        Nii, Nij, Njj, jmap, jmask, nj_total)
     Ainv, Y, S_b = block_reduce(Nii_s, Nij_s, Njj_s)
     with record_function("dta.junction"):
         Sinv = _junction_inverse(S_b, jmap, jmask, nj_total)
@@ -279,6 +310,218 @@ def _schur_apply_inv_core(Ainv, Y, Sinv, di, dj, djg, Nij_s, bi, bj,
     xj_b = xj[jmap] * jmask
     xi = (w - torch.einsum("bij,bj->bi", Y, xj_b)) * di
     return xi, xj * djg
+
+
+# ---------------------------------------------------------------------------
+# flat solves of the GNSS-only adjustment: library Cholesky factors
+# ---------------------------------------------------------------------------
+
+
+def _block_reduce(Nii, Nij, Njj, bi, bj, jmask):
+    """Per-block inner elimination → (S_b, t_b, chol(Nii), Nii⁻¹Nij,
+    Nii⁻¹bi), batched: the library Cholesky and triangular solves."""
+    L = torch.linalg.cholesky(Nii)
+    Y = torch.cholesky_solve(Nij, L)
+    w = torch.cholesky_solve(bi[..., None], L)[..., 0]
+    S_b = Njj - Nij.transpose(1, 2) @ Y
+    t_b = bj - torch.einsum("bki,bk->bi", Nij, w)
+    # mask padded junction rows/cols so scatters stay inert
+    S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
+    return S_b, t_b * jmask, L, Y, w
+
+
+def _schur_solve(Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, scale=True):
+    if scale:
+        Nii, Nij, Njj, bi, bj, di, dj, djg = _unity_scale(
+            Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total)
+    S_b, t_b, L, Y, w = _block_reduce(Nii, Nij, Njj, bi, bj, jmask)
+    # the reduced junction system (scratch diagonal identity-padded)
+    Lj = torch.linalg.cholesky(_scatter_junction_matrix(S_b, jmap,
+                                                        nj_total))
+    t = _scatter_global(t_b, jmap, nj_total)
+    xj = torch.cholesky_solve(t[:, None], Lj)[:, 0]
+    xj_b = xj[jmap] * jmask                     # (B, nj) gather
+    xi = w - torch.einsum("bij,bj->bi", Y, xj_b)
+    if scale:
+        # unscale: xi by block factors, xj by the global junction factors
+        xi = xi * di
+        xj = xj * djg
+    return xi, xj
+
+
+def schur_solve(bs: BlockSystem, scale: bool = True, device=None):
+    """Solve the full system via batched two-level Schur reduction, in the
+    pools' dtype, on `device` (the card by default).
+
+    Returns (xi (B, ni), xj (nj_global,)) numpy — inner corrections per
+    block and global junction corrections."""
+    dev = _device(device)
+    pools = [_put(a, dev) for a in (bs.Nii, bs.Nij, bs.Njj, bs.bi, bs.bj)]
+    xi, xj = _schur_solve(*pools, _put(bs.jmap, dev, torch.int64),
+                          _put(bs.jmask, dev, pools[0].dtype),
+                          bs.nj_global + 1, scale)
+    return xi.cpu().numpy(), xj.cpu().numpy()[:bs.nj_global]
+
+
+def schur_solve_refined(bs: BlockSystem, mesh=None, refine: int = 2,
+                        dtype=np.float32, device=None):
+    """Mixed-precision blocked solve: the factorization-heavy Schur solve
+    runs in `dtype` (float32) on `device`; `refine` rounds of iterative
+    refinement with float64 residuals computed on the host
+    (_block_matvec) recover near-float64 accuracy (contraction ~
+    kappa_scaled * eps_f32 per round).  Each round factors afresh, as the
+    JAX package's does; schur_solve_factored factors once.  A mesh
+    (multi-device) raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_REFUSAL)
+    low = dict(Nii=bs.Nii.astype(dtype), Nij=bs.Nij.astype(dtype),
+               Njj=bs.Njj.astype(dtype), jmap=bs.jmap,
+               jmask=bs.jmask.astype(dtype), imask=bs.imask.astype(dtype),
+               nj_global=bs.nj_global)
+
+    def solve_low(rhs_i, rhs_j_blocks):
+        xi, xj = schur_solve(BlockSystem(bi=rhs_i.astype(dtype),
+                                         bj=rhs_j_blocks.astype(dtype),
+                                         **low), device=device)
+        return xi.astype(np.float64), xj.astype(np.float64)
+
+    xi, xj = solve_low(bs.bi, bs.bj)
+    rhs_j_global = _gather_rhs_junction(bs)
+    for _ in range(refine):
+        yi, yj = _block_matvec(bs, xi, xj)
+        ri = (bs.bi * bs.imask) - yi
+        # the junction residual back in per-block rhs slots: the full
+        # residual to one owner block per junction param
+        di_, dj_ = solve_low(ri, _owned_rhs(bs, rhs_j_global - yj))
+        xi = xi + di_
+        xj = xj + dj_
+    return xi, xj
+
+
+def _schur_factor(Nii, Nij, Njj, jmap, jmask, nj_total):
+    """Factor the blocked system once with the library Cholesky: returns
+    (L, Y, Lj, di, dj, djg, Nij_s) — block Cholesky factors, eliminated
+    coupling, junction factor, the unity-scaling factors and the scaled
+    coupling."""
+    Nii_s, Nij_s, Njj_s, di, dj, djg = _scaled_normals(
+        Nii, Nij, Njj, jmap, jmask, nj_total)
+    L = torch.linalg.cholesky(Nii_s)
+    Y = torch.cholesky_solve(Nij_s, L)
+    S_b = Njj_s - Nij_s.transpose(1, 2) @ Y
+    S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
+    Lj = torch.linalg.cholesky(_scatter_junction_matrix(S_b, jmap, nj_total))
+    return L, Y, Lj, di, dj, djg, Nij_s
+
+
+def _schur_apply_core(L, Y, Lj, di, dj, djg, Nij_s, bi, bj, jmap, jmask,
+                      nj_total):
+    """Solve with precomputed Cholesky factors (triangular solves only)."""
+    bi = bi * di
+    bj = bj * dj
+    w = torch.cholesky_solve(bi[..., None], L)[..., 0]
+    t_b = (bj - torch.einsum("bki,bk->bi", Nij_s, w)) * jmask
+    t = _scatter_global(t_b, jmap, nj_total)
+    xj = torch.cholesky_solve(t[:, None], Lj)[:, 0]
+    xj_b = xj[jmap] * jmask
+    xi = (w - torch.einsum("bij,bj->bi", Y, xj_b)) * di
+    return xi, xj * djg
+
+
+def _schur_factor_inv64(Nii, Nij, Njj, jmap, jmask, nj_total):
+    """Float64 explicit-inverse factorization with the library Cholesky:
+    (Ainv, Y, Sinv, di, dj, djg, Nij_s) as _schur_factor_inv returns them,
+    exact to float64 — for systems whose scaled condition number is past
+    what float32 factors and refinement recover (contraction ~ kappa_s *
+    eps32 stalls near 1)."""
+    Nii_s, Nij_s, Njj_s, di, dj, djg = _scaled_normals(
+        Nii, Nij, Njj, jmap, jmask, nj_total)
+    L = torch.linalg.cholesky(Nii_s)
+    eye = torch.eye(Nii_s.shape[1], dtype=Nii_s.dtype, device=Nii_s.device)
+    Ainv = torch.cholesky_solve(eye.expand_as(Nii_s), L)
+    Y = Ainv @ Nij_s
+    S_b = Njj_s - Nij_s.transpose(1, 2) @ Y
+    S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
+    Lj = torch.linalg.cholesky(_scatter_junction_matrix(S_b, jmap, nj_total))
+    return Ainv, Y, torch.cholesky_inverse(Lj), di, dj, djg, Nij_s
+
+
+def _device_solve_refined(L, Y, Lj, di, dj, djg, Nij_s, Nii64, Nij64, Njj64,
+                          bi64, bj64, jmap, jmask32, jmask64, imask64,
+                          owner64, nj_total, refine, method="chol"):
+    """Factored apply + `refine` rounds of float64 residual refinement
+    against the float64 pools, all on the device: a refined solve moves
+    only rhs- and solution-sized tensors.
+
+    method: 'chol' — factors (L, Y, Lj) triangular (cholesky_solve
+    applies); 'inv' — factors (Ainv, Y, Sinv) explicit inverses (matmul
+    applies)."""
+    f32 = L.dtype
+    core = _schur_apply_inv_core if method == "inv" else _schur_apply_core
+
+    def apply(ri64, rjb64):
+        xi, xj = core(L, Y, Lj, di, dj, djg, Nij_s, ri64.to(f32),
+                      rjb64.to(f32), jmap, jmask32, nj_total)
+        return xi.to(bi64.dtype), xj.to(bi64.dtype)
+
+    xi, xj = apply(bi64, bj64)
+    t_glob = _scatter_global(bj64 * jmask64, jmap, nj_total)
+    for _ in range(refine):
+        xj_b = xj[jmap] * jmask64
+        yi = (torch.einsum("bij,bj->bi", Nii64, xi)
+              + torch.einsum("bij,bj->bi", Nij64, xj_b))
+        yj_b = (torch.einsum("bij,bi->bj", Nij64, xi)
+                + torch.einsum("bij,bj->bi", Njj64, xj_b)) * jmask64
+        rj = t_glob - _scatter_global(yj_b, jmap, nj_total)
+        ri = bi64 * imask64 - yi
+        # one owner slot per junction param
+        dxi, dxj = apply(ri, rj[jmap] * owner64)
+        xi = xi + dxi
+        xj = xj + dxj
+    return xi, xj
+
+
+class SchurFactors:
+    """Device-resident library-Cholesky factorization of a BlockSystem
+    (cast to dtype once)."""
+
+    def __init__(self, bs: BlockSystem, dtype=np.float32, device=None):
+        self.bs = bs
+        self.nj_total = bs.nj_global + 1
+        self.device = _device(device)
+        self.dtype = _torch_dtype(dtype)
+        self.jmap = _put(bs.jmap, self.device, torch.int64)
+        self.jmask = _put(bs.jmask, self.device, self.dtype)
+        self.factors = _schur_factor(
+            *(_put(a, self.device, self.dtype)
+              for a in (bs.Nii, bs.Nij, bs.Njj)),
+            self.jmap, self.jmask, self.nj_total)
+
+    def solve(self, bi, bj):
+        xi, xj = _schur_apply_core(
+            *self.factors, _put(bi, self.device, self.dtype),
+            _put(bj, self.device, self.dtype), self.jmap, self.jmask,
+            self.nj_total)
+        return _np64(xi), _np64(xj)[:self.bs.nj_global]
+
+
+def schur_solve_factored(bs: BlockSystem, refine: int = 2,
+                         dtype=np.float32, factors: SchurFactors = None,
+                         device=None):
+    """Mixed-precision solve with factorization reuse: factor once in
+    `dtype`, then 1 + `refine` cheap triangular-solve applications with
+    float64 residual refinement on the host.  Returns (xi, xj,
+    factors)."""
+    if factors is None:
+        factors = SchurFactors(bs, dtype, device=device)
+    xi, xj = factors.solve(bs.bi, bs.bj)
+    rhs_j_global = _gather_rhs_junction(bs)
+    for _ in range(refine):
+        yi, yj = _block_matvec(bs, xi, xj)
+        di_, dj_ = factors.solve((bs.bi * bs.imask) - yi,
+                                 _owned_rhs(bs, rhs_j_global - yj))
+        xi = xi + di_
+        xj = xj + dj_
+    return xi, xj, factors
 
 
 def _newton_loop(A0, Nb, mm, max_rounds, tol, min_rounds=0,
@@ -359,48 +602,72 @@ def _newton_flat_junction(S_b, jmap, jmask64, Sinv32, nj_total,
 
 
 class DeviceSchurFactors:
-    """Device-resident mixed-precision blocked factors (the JAX package's
-    method 'inv': explicit inverses, in its device_f64=False mode).
+    """Device-resident mixed-precision blocked factors.
 
-    The factorization runs in float32 on the device and keeps explicit
-    inverses, so every apply is a matmul.  The float32 pools are a cast
-    of device-assembled normals (adjust/device_assembly.py), or host
-    (numpy) normals cast to float32 on the host and uploaded — no float64
-    normals live on the device.  Float64 residuals come from the caller:
-    the A-based device operator (adjust/device_solve.py) or the host loop
-    (schur_solve_device_refined).
+    method "inv" (explicit float32 inverses, the level-1 factor on the
+    Cholesky-inverse kernel: every apply is a matmul), "chol" (float32
+    library Cholesky factors, triangular-solve applies) or "inv64"
+    (explicit inverses factored in float64 with the library Cholesky,
+    exact: no refinement rounds).
+
+    device_f64 (the default, as in the JAX package) uploads the float64
+    normals once; the factors are cast from them on the device, and
+    solve_device runs `refine` rounds of float64 residual refinement
+    against them on the device (_device_solve_refined).  device_f64=False
+    uploads only float32 casts of host (numpy) normals, and solve_device
+    is one float32 apply: the caller drives the float64 refinement — the
+    A-based device operator (adjust/device_solve.py) or the host loop
+    (schur_solve_device_refined).  Device-assembled normals (tensor
+    pools, adjust/device_assembly.py) are used where they lie, as
+    float32, and take the second mode ("inv64" refuses them).
 
     device: where the factors live — the pools' device for tensors, else
-    "cuda"."""
+    the card.  A mesh (multi-device) raises NotImplementedError."""
 
-    def __init__(self, bs: BlockSystem, device=None):
+    def __init__(self, bs: BlockSystem, dtype=np.float32,
+                 method: str = "inv", mesh=None, device_f64: bool = True,
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(MESH_REFUSAL)
+        if method not in ("inv", "chol", "inv64"):
+            raise ValueError(f"unknown method {method!r}")
         self.bs = bs
         self.nj_total = bs.nj_global + 1
-        self.dtype = torch.float32
+        self.method = method
+        self.dtype = _torch_dtype(dtype)
         self.B_real = bs.Nii.shape[0]
         self.device_normals = isinstance(bs.Nii, torch.Tensor)
-        if device is None:
-            device = bs.Nii.device if self.device_normals else "cuda"
-        self.device = torch.device(device)
-
-        def put(x, dt):
-            return torch.as_tensor(np.asarray(x), dtype=dt,
-                                   device=self.device)
-
-        self.jmap = put(bs.jmap, torch.int64)
-        self.jmask32 = put(bs.jmask, self.dtype)
-        self.jmask64 = put(bs.jmask, torch.float64)
-        self._N32 = self._pools32(bs)
+        if method == "inv64" and self.device_normals:
+            raise ValueError("method 'inv64' factors host float64 normals; "
+                             "device-assembled pools take 'inv' or 'chol'")
+        self.device_f64 = ((device_f64 or method == "inv64")
+                           and not self.device_normals)
+        if device is None and self.device_normals:
+            device = bs.Nii.device
+        self.device = _device(device)
+        f64 = torch.float64
+        self.jmap = _put(bs.jmap, self.device, torch.int64)
+        self.jmask32 = _put(bs.jmask, self.device, self.dtype)
+        self.jmask64 = _put(bs.jmask, self.device, f64)
+        self.imask64 = _put(bs.imask, self.device, f64)
+        self.owner64 = _put(bs.owner_mask(), self.device, f64)
+        self._load(bs)
         self.refactor()
 
-    def _pools32(self, bs: BlockSystem):
-        """The float32 normals pools on the device."""
-        if self.device_normals:
-            return tuple(a.to(self.device, self.dtype)
-                         for a in (bs.Nii, bs.Nij, bs.Njj))
-        return tuple(torch.as_tensor(np.asarray(a, dtype=np.float32),
-                                     device=self.device)
-                     for a in (bs.Nii, bs.Nij, bs.Njj))
+    def _load(self, bs: BlockSystem):
+        """The normals pools on the device: float64 (device_f64) or the
+        float32 casts."""
+        self.Nii64 = self.Nij64 = self.Njj64 = self._N32 = None
+        pools = (bs.Nii, bs.Nij, bs.Njj)
+        if self.device_f64:
+            self.Nii64, self.Nij64, self.Njj64 = (
+                _put(a, self.device, torch.float64) for a in pools)
+        elif self.device_normals:
+            self._N32 = tuple(a.to(self.device, self.dtype) for a in pools)
+        else:
+            self._N32 = tuple(torch.as_tensor(np.asarray(a, dtype=np.float32),
+                                              device=self.device)
+                              for a in pools)
 
     def update(self, bs: BlockSystem):
         """Re-linearised normals for the same topology: swap the pools and
@@ -408,35 +675,57 @@ class DeviceSchurFactors:
         if tuple(bs.Nii.shape) != tuple(self.bs.Nii.shape):
             raise ValueError("update() requires the same block topology")
         self.bs = bs
-        self._N32 = self._pools32(bs)
+        self._load(bs)
         self.refactor()
 
     def refactor(self):
-        """(Re)factor the resident float32 normals."""
-        self.factors = _schur_factor_inv(*self._N32, self.jmap,
-                                         self.jmask32, self.nj_total)
+        """(Re)factor the resident normals: "inv64" in float64, "inv" and
+        "chol" from their float32 casts."""
+        if self.method == "inv64":
+            self.factors = _schur_factor_inv64(
+                self.Nii64, self.Nij64, self.Njj64, self.jmap,
+                self.jmask64, self.nj_total)
+            return
+        factor = (_schur_factor_inv if self.method == "inv"
+                  else _schur_factor)
+        N32 = self._N32 or tuple(a.to(self.dtype) for a in (
+            self.Nii64, self.Nij64, self.Njj64))
+        self.factors = factor(*N32, self.jmap, self.jmask32, self.nj_total)
 
-    def solve_device(self, bi, bj):
-        """One float32 apply of the factors; rhs and results stay on the
-        device (the caller drives the float64 refinement)."""
-        bi = torch.as_tensor(bi, device=self.device).to(self.dtype)
-        bj = torch.as_tensor(bj, device=self.device).to(self.dtype)
-        return _schur_apply_inv_core(*self.factors, bi, bj, self.jmap,
-                                     self.jmask32, self.nj_total)
+    def solve_device(self, bi, bj, refine: int = 2):
+        """Refined solve with rhs and results on the device: `refine`
+        float64 rounds with device_f64 (none for "inv64", whose factors
+        are exact), else one apply in the factor dtype (the caller drives
+        the float64 refinement)."""
+        method = "inv" if self.method == "inv64" else self.method
+        if not self.device_f64:
+            bi = torch.as_tensor(bi, device=self.device).to(self.dtype)
+            bj = torch.as_tensor(bj, device=self.device).to(self.dtype)
+            core = (_schur_apply_inv_core if method == "inv"
+                    else _schur_apply_core)
+            return core(*self.factors, bi, bj, self.jmap, self.jmask32,
+                        self.nj_total)
+        f64 = torch.float64
+        return _device_solve_refined(
+            *self.factors, self.Nii64, self.Nij64, self.Njj64,
+            torch.as_tensor(bi, dtype=f64, device=self.device),
+            torch.as_tensor(bj, dtype=f64, device=self.device), self.jmap,
+            self.jmask64 if self.method == "inv64" else self.jmask32,
+            self.jmask64, self.imask64, self.owner64, self.nj_total,
+            0 if self.method == "inv64" else refine, method)
 
-    def solve(self, bi, bj):
-        """One float32 apply from host rhs pools: (xi (B, ni), xj (njg,))
-        float64 numpy; the float64 refinement is the host loop's
-        (schur_solve_device_refined)."""
-        xi, xj = self.solve_device(bi, bj)
-        return (xi.double().cpu().numpy()[:self.B_real],
-                xj.double().cpu().numpy()[:self.bs.nj_global])
+    def solve(self, bi, bj, refine: int = 2):
+        """solve_device from host rhs pools: (xi (B, ni), xj (njg,))
+        float64 numpy."""
+        xi, xj = self.solve_device(bi, bj, refine)
+        return _np64(xi)[:self.B_real], _np64(xj)[:self.bs.nj_global]
 
     def newton_factors(self, rounds: int = None, N64=None):
         """Float64 Newton-refined covariance factors (one-time, for the
         variance-extraction stage after convergence) against the float64
         normals pools N64 (DeviceAssembly.build_f64()); N64=None takes the
-        host-assembled system's own float64 pools (bs).
+        resident float64 pools (device_f64), or uploads the host-assembled
+        system's own (bs).  "inv64" factors are returned as they are.
 
         Rounds are residual-driven (_newton_loop; evidence stored in
         self.cov_refine_evidence).  The level-1 refinement runs in block
@@ -451,7 +740,13 @@ class DeviceSchurFactors:
         give covariances that differ at ~1e-9; at 1e-12 the second round
         takes both to the float64 floor."""
         rounds, tol = _newton_policy(rounds)
-        if N64 is None:
+        if self.method == "inv64":
+            return self.factors
+        if self.method != "inv":
+            raise ValueError("newton_factors requires method='inv'")
+        if N64 is None and self.device_f64:
+            N64 = (self.Nii64, self.Nij64, self.Njj64)
+        elif N64 is None:
             if self.device_normals:
                 raise ValueError("device-assembled normals: pass N64 "
                                  "(DeviceAssembly.build_f64())")
@@ -538,6 +833,17 @@ def schur_solve_device_refined(bs: BlockSystem,
         xi = xi + di_
         xj = xj + dj_
     return xi, xj
+
+
+def schur_solve_device(bs: BlockSystem, refine: int = 2, dtype=np.float32,
+                       factors: DeviceSchurFactors = None, device=None):
+    """Device-resident mixed-precision solve with factor reuse: `refine`
+    float64 refinement rounds on the device.  Returns (xi, xj,
+    factors)."""
+    if factors is None:
+        factors = DeviceSchurFactors(bs, dtype, device=device)
+    xi, xj = factors.solve(bs.bi, bs.bj, refine)
+    return xi, xj, factors
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,21 @@ the .adj (below "Number of unknown parameters") and .xyz numbers within
 1e-6.  The JAX package's own --tpu route takes two fixed Newton rounds,
 which on these weakly constrained block-1 normals (condition number near
 1.5e7) leave it about 1e-4 m off, so it is not the reference here: the
-port with its rounds fixed at two must be more than 1e-6 m off, which
-shows that the comparison sees the hazard.
+port with its rounds fixed at two (and the float64 fallback off) must be
+more than 1e-6 m off, which shows that the comparison sees the hazard.
+
+F9 (ROADMAP.md): on the simulated 6 x 6 network, whose block 1 has a
+scaled condition number of 2.0e9, the float32 factor meets a
+non-positive pivot; the device route then solves that block in float64
+and lands within 1e-8 m of the port's host --block1-phased (the JAX CLI
+writes NaN there).  A system whose float32 copy is singular takes the
+same fallback and matches scipy's cho_solve to 1e-9.  Every fallback
+solve raises one Float64FallbackWarning and is counted in the result's
+profile; a solve on the kernel's route raises none.
 """
 
 import pickle
+import warnings
 
 import numpy as np
 import pytest
@@ -96,12 +106,30 @@ def test_block1_device_route_matches_host(dna, host, tmp_path, route):
 
 def test_two_rounds_are_not_enough(dna, host, tmp_path, monkeypatch):
     """The same route with the Newton rounds capped at the JAX package's
-    two lands more than 1e-6 m off the host route."""
+    two and the float64 fallback off lands more than 1e-6 m off the host
+    route.  With the fallback on, the solves whose two rounds end above
+    RESIDUAL_BOUND take the float64 route, each with a warning, and land
+    within 1e-8 m."""
     monkeypatch.setattr(dense_device, "MAX_ROUNDS", 2)
-    rt = _run(torch_main, tmp_path / "torch", dna,
-              ["--block1-phased", "--tpu", "--device", "cpu"])
-    assert all(r["rounds"] == 2 for r in rt.profile["newton"])
+    argv = ["--block1-phased", "--tpu", "--device", "cpu"]
+    with monkeypatch.context() as m:
+        m.setattr(dense_device, "RESIDUAL_BOUND", np.inf)
+        rt = _run(torch_main, tmp_path / "off", dna, argv)
+    assert all(r["rounds"] == 2 and r["route"] == "kernel"
+               for r in rt.profile["newton"])
+    assert rt.profile["f64_fallbacks"] == 0
     assert np.abs(rt.xyz - host[1].xyz).max() > 1e-6
+    with pytest.warns(dense_device.Float64FallbackWarning) as caught:
+        rt = _run(torch_main, tmp_path / "on", dna, argv)
+    newton = rt.profile["newton"]
+    assert all((r["route"] == "f64") == (r["residual"] > 1e-6)
+               for r in newton)
+    n_f64 = sum(r["route"] == "f64" for r in newton)
+    assert n_f64 > 0 and rt.profile["f64_fallbacks"] == n_f64
+    assert n_f64 == sum(issubclass(w.category,
+                                   dense_device.Float64FallbackWarning)
+                        for w in caught)
+    assert np.abs(rt.xyz - host[1].xyz).max() < 1e-8
 
 
 def _system(n, kappa_decades, seed=0):
@@ -115,6 +143,7 @@ def _system(n, kappa_decades, seed=0):
 def _two_rounds(N, rhs, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(dense_device, "MAX_ROUNDS", 2)
+        m.setattr(dense_device, "RESIDUAL_BOUND", np.inf)
         rec = []
         out = dense_solve_device(N, rhs, device="cpu", record=rec)
     assert rec[0]["rounds"] == 2
@@ -129,15 +158,19 @@ def test_newton_stop(decades, monkeypatch):
     two do not."""
     N, rhs = _system(120, decades)
     rec = []
-    X, dx = dense_solve_device(N, rhs, device="cpu", record=rec)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", dense_device.Float64FallbackWarning)
+        X, dx = dense_solve_device(N, rhs, device="cpu", record=rec)
     r = rec[0]
     assert r["n"] == 120 and 2 <= r["rounds"] <= dense_device.MAX_ROUNDS
     X2, dx2 = _two_rounds(N, rhs, monkeypatch)
     ref = np.linalg.solve(N, rhs)
     err = np.abs(dx - ref).max() / np.abs(ref).max()
     err2 = np.abs(dx2 - ref).max() / np.abs(ref).max()
-    # the last round's residual, near its float64 floor
+    # the last round's residual, near its float64 floor, and the kernel's
+    # route kept
     assert r["residual"] < 10.0 ** decades * 1e-13
+    assert r["route"] == "kernel"
     if decades == 2:
         assert err < 1e-12 and err2 < 1e-12
         np.testing.assert_allclose(X, X2, rtol=0, atol=1e-12 * np.abs(X).max())
@@ -153,3 +186,87 @@ def test_newton_cap(monkeypatch):
     N, rhs = _system(60, 7, seed=1)
     dense_solve_device(N, rhs, device="cpu", record=rec)
     assert rec[0]["rounds"] == 3
+
+
+@pytest.fixture(scope="module")
+def f9_dna(tmp_path_factory):
+    """ROADMAP F9's network: the 6 x 6 mixed network as DNA files, its
+    simulated measurements (import --simulate) as the records."""
+    d = tmp_path_factory.mktemp("f9")
+    net, _ = synthetic_mixed_network(6, 6, block_rows=3, block_cols=3)
+    write_dna_stn(str(d / "n.stn"), net)
+    write_dna_msr(str(d / "n.msr"), net)
+    assert torch_main(["import", "-n", "n", str(d / "n.stn"),
+                       str(d / "n.msr"), "--simulate", "--output-folder",
+                       str(d)]) == 0
+    return d
+
+
+def test_f9_network_takes_the_float64_route(f9_dna, tmp_path):
+    """F9: block 1 of the simulated 6 x 6 network (scaled condition
+    number 2.0e9) meets a non-positive float32 pivot.  The device route
+    solves that block in float64 on the same device, records the route,
+    and lands within 1e-8 m of the port's host --block1-phased (the JAX
+    CLI writes NaN on this network)."""
+    res, fallbacks = {}, {}
+    for route, extra in (("host", []), ("device", ["--tpu", "--device",
+                                                     "cpu"])):
+        d = tmp_path / route
+        d.mkdir()
+        common = ["--output-folder", str(d)]
+        assert torch_main(["import", "-n", "s", str(f9_dna / "n.stn"),
+                           str(f9_dna / "n.simulated.msr"), *common]) == 0
+        assert torch_main(["segment", "s", "--min-inner-stns", "10",
+                           "--max-block-stns", "20", *common]) == 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert torch_main(["adjust", "s", "--block1-phased", *extra,
+                               *common]) == 0
+        fallbacks[route] = [w for w in caught if issubclass(
+            w.category, dense_device.Float64FallbackWarning)]
+        with open(d / "s.results.pkl", "rb") as f:
+            res[route] = pickle.load(f)
+    h, r = res["host"], res["device"]
+    assert r.status == h.status and r.status.startswith(STATUS)
+    assert np.abs(r.xyz - h.xyz).max() < 1e-8
+    newton = r.profile["newton"]
+    assert len(newton) == len(r.block_info)
+    f64 = [x for x in newton if x["route"] == "f64"]
+    assert f64 and all(x["f64_residual"] < 1e-6 for x in f64)
+    assert r.profile["f64_fallbacks"] == len(fallbacks["device"]) == len(f64)
+    assert not fallbacks["host"]
+    assert all(x["residual"] <= dense_device.RESIDUAL_BOUND
+               for x in newton if x["route"] == "kernel")
+
+
+def test_non_positive_float32_pivot_takes_float64():
+    """An SPD system whose float32 copy is singular (a 2 x 2 block
+    [[1, 1 - 2^-25], [1 - 2^-25, 1]]: 1 - 2^-25 rounds to 1 in float32)
+    takes the float64 route and matches scipy's cho_solve to 1e-9
+    relative, with and without unity scaling."""
+    import scipy.linalg as sla
+    rng = np.random.default_rng(4)
+    n = 40
+    G = rng.normal(size=(2 * n, n - 2))
+    N = np.zeros((n, n))
+    N[2:, 2:] = G.T @ G / (2 * n) + 0.5 * np.eye(n - 2)
+    N[:2, :2] = [[1.0, 1.0 - 2.0 ** -25], [1.0 - 2.0 ** -25, 1.0]]
+    p = rng.permutation(n)
+    N = N[np.ix_(p, p)]
+    rhs = rng.normal(size=n)
+    assert np.linalg.eigvalsh(N)[0] > 0
+    status = batched_cholesky_inverse(
+        torch.tensor(N, dtype=torch.float32)[None])[1]
+    assert status.tolist() == [1]
+    c = sla.cho_factor(N, lower=True)
+    ref, Xref = sla.cho_solve(c, rhs), sla.cho_solve(c, np.eye(n))
+    for scale in (True, False):
+        rec = []
+        with pytest.warns(dense_device.Float64FallbackWarning,
+                          match="40x40 normals took the float64 fallback"):
+            X, dx = dense_solve_device(N, rhs, scale, device="cpu",
+                                       record=rec)
+        assert rec[0]["route"] == "f64" and rec[0]["rounds"] == 0
+        assert rec[0]["f64_residual"] < 1e-12
+        assert np.abs(dx - ref).max() / np.abs(ref).max() < 1e-9
+        assert np.abs(X - Xref).max() / np.abs(Xref).max() < 1e-9

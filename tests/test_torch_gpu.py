@@ -56,11 +56,13 @@ def test_kernel_matches_plain_version(cuda, B, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, n", [(3, 700), (2, 2048)])
+@pytest.mark.parametrize("B, n", [(3, 700), (2, 2048), (16, 768)])
 def test_kernel_residual_no_worse_than_plain(cuda, B, n):
     """The 3xTF32 tile products keep float32 accuracy: the float64
     residual max|Linv N Linvᵀ − I| of the kernel is at most twice that
-    of the plain version (full float32 products) on the same input."""
+    of the plain version (full float32 products) on the same input.
+    (16, 768) is the level 1 of the GNSS-only network of bench.py's
+    default (64 x 64 stations, blocks of 16)."""
     N = torch.tensor(_spd(B, n, n), dtype=torch.float32, device=cuda)
     N64 = N.double()
     eye = torch.eye(n, dtype=torch.float64, device=cuda)
@@ -314,3 +316,50 @@ def test_block1_on_card_matches_cpu(cuda, tmp_path):
     assert np.abs(g.xyz - c.xyz).max() <= 1e-8
     assert launches["cuda"] == len(g.block_info) and launches["cpu"] == 0
     assert all(r["residual"] < 1e-8 for r in g.profile["newton"])
+
+
+@pytest.mark.gpu
+def test_dense_solve_fallback_on_card(cuda):
+    """An SPD system whose float32 copy is singular takes the float64
+    route on the card, once the kernel flags the pivot, and agrees with
+    the CPU's run of the same route to 1e-12 relative."""
+    from dynadjust_tpu_torch.parallel.dense_device import dense_solve_device
+    rng = np.random.default_rng(4)
+    n = 40
+    N = np.zeros((n, n))
+    N[2:, 2:] = _spd(1, n - 2, 15)[0]
+    N[:2, :2] = [[1.0, 1.0 - 2.0 ** -25], [1.0 - 2.0 ** -25, 1.0]]
+    rhs = rng.normal(size=n)
+    out, rec = {}, {}
+    for dev in ("cuda", "cpu"):
+        rec[dev] = []
+        before = batched_cholesky_inverse.launches
+        out[dev] = dense_solve_device(N, rhs, device=dev, record=rec[dev])
+        assert batched_cholesky_inverse.launches == before + (dev == "cuda")
+        assert rec[dev][0]["route"] == "f64"
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert np.abs(g - c).max() <= 1e-12 * np.abs(c).max()
+
+
+@pytest.mark.gpu
+def test_adjust_blocked_device_on_card_matches_cpu(cuda):
+    """The device-resident GNSS Gauss-Newton loop on the 12 x 12 network
+    of tests/test_schur.py: the card's run against the CPU's, the same
+    iterations and xyz within 1e-8 m, the kernel launched once (the
+    factorization) on the card."""
+    from dynadjust_tpu_torch.parallel.blocked_adjust import BlockedNetwork
+    from dynadjust_tpu_torch.parallel.device_adjust import \
+        adjust_blocked_device
+    from dynadjust_tpu_torch.utils.synthetic import (grid_segmentation,
+                                                     synthetic_grid_network)
+    xyz, pairs, obs, var, x0, fixed = synthetic_grid_network(12, 12, seed=1)
+    blocks, junction = grid_segmentation(12, 12, 4, 4)
+    bn = BlockedNetwork(nstations=144, pairs=pairs, obs=obs,
+                        weight=1.0 / var, blocks=blocks,
+                        junction_stations=junction, constrained=fixed)
+    before = batched_cholesky_inverse.launches
+    xg, itg, mcg, _ = adjust_blocked_device(bn, x0)
+    assert batched_cholesky_inverse.launches == before + 1
+    xc, itc, _, _ = adjust_blocked_device(bn, x0, device="cpu")
+    assert itg == itc and mcg <= 5e-4
+    assert np.abs(xg - xc).max() <= 1e-8

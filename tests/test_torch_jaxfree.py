@@ -5,9 +5,11 @@ of the JAX package (even a numpy-only one) imports jax through
 dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
 chip_smoke (the host modules of binary, dbid and JSONL files, simulation,
-plots and the host kernel library by name), runs the host kernel library
-and a small adjustment on the CPU, and checks that none of the three
-names was loaded; another runs `python -m dynadjust_tpu_torch` import,
+plots, the host kernel library and the GNSS-only blocked adjustment by
+name), runs the host kernel library, a small adjustment, and a small
+GNSS network through the host-assembled and the device-resident
+Gauss-Newton loops on the CPU, and checks that none of the three names
+was loaded; another runs `python -m dynadjust_tpu_torch` import,
 reftran, geoid, segment, adjust --phased --tpu --device cpu, the
 dynadjust pipeline verb, import --simulate --export-bst-bms, an import of
 the binary pair, adjust --block1-phased --tpu --device cpu and metadata
@@ -43,7 +45,9 @@ _CHILD = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     for m in ("io_formats.binary", "io_formats.dbid", "io_formats.jsonl",
-              "network.simulate", "output.plot", "ops.native"):
+              "network.simulate", "output.plot", "ops.native",
+              "parallel.blocked_adjust", "parallel.assembly",
+              "parallel.device_adjust"):
         assert "dynadjust_tpu_torch." + m in mods, m
     import numpy as np
     from dynadjust_tpu_torch.ops import native
@@ -62,6 +66,20 @@ _CHILD = textwrap.dedent("""
     res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
                              device="cpu")
     assert res.status == "Converged", res.status
+    from dynadjust_tpu_torch.parallel.blocked_adjust import (
+        BlockedNetwork, adjust_blocked)
+    from dynadjust_tpu_torch.parallel.device_adjust import (
+        adjust_blocked_device)
+    from dynadjust_tpu_torch.utils.synthetic import (
+        grid_segmentation, synthetic_grid_network)
+    xyz, pairs, obs, var, x0, fixed = synthetic_grid_network(8, 8)
+    blocks, junction = grid_segmentation(8, 8, 4, 4)
+    bn = BlockedNetwork(nstations=64, pairs=pairs, obs=obs,
+                        weight=1.0 / var, blocks=blocks,
+                        junction_stations=junction, constrained=fixed)
+    xd, itd, mcd, _ = adjust_blocked_device(bn, x0, device="cpu")
+    xh, ith, _, _ = adjust_blocked(bn, x0, device="cpu")
+    assert itd == ith and mcd <= 5e-4 and abs(xd - xh).max() < 1e-8
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in FORBIDDEN)
     assert not loaded, loaded

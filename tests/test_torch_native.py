@@ -9,7 +9,11 @@ before a pointer reaches the library.  The same inputs go through the
 JAX package's C functions (native/assembly_kernels.cpp, built here by
 g++ with the flags of native/Makefile and called through ctypes, as
 dynadjust_tpu.ops.native calls them) and through
-dynadjust_tpu.ops.native.baseline_residuals, to the same 1e-12.
+dynadjust_tpu.ops.native.baseline_residuals, to the same 1e-12.  At the
+inputs the GNSS-only assembly gives them (the 16 x 16 network of
+tests/test_schur.py and the port's scatter plan of it), the port's
+baseline_residuals and scatter_rhs equal the JAX package's tracked
+native/libdta_native.so (dynadjust_tpu.ops.native._load) bit for bit.
 """
 
 import ctypes
@@ -159,3 +163,57 @@ def test_block_matvec_matches_jax(jax_lib, B, ni, nj):
     yi, yj = np.empty((B, ni)), np.empty((B, nj))
     jax_lib.block_matvec(*map(_pd, args), B, ni, nj, _pd(yi), _pd(yj))
     assert _rel(got[0], yi) < 1e-12 and _rel(got[1], yj) < 1e-12
+
+
+@pytest.fixture(scope="module")
+def gnss_plan():
+    """The 16 x 16 GNSS network of tests/test_schur.py (seed 3, blocks of
+    4) and the port's scatter plan of it (parallel/assembly.build_plan):
+    the inputs the GNSS-only assembly gives both functions."""
+    from dynadjust_tpu_torch.parallel.assembly import build_plan
+    from dynadjust_tpu_torch.parallel.blocked_adjust import BlockedNetwork
+    from dynadjust_tpu_torch.utils.synthetic import (grid_segmentation,
+                                                     synthetic_grid_network)
+    xyz, pairs, obs, var, x0, fixed = synthetic_grid_network(16, 16, seed=3)
+    blocks, junction = grid_segmentation(16, 16, 4, 4)
+    bn = BlockedNetwork(nstations=256, pairs=pairs, obs=obs,
+                        weight=1.0 / var, blocks=blocks,
+                        junction_stations=junction, constrained=fixed)
+    return build_plan(bn, 0.01), x0
+
+
+def test_baseline_residuals_on_gnss_inputs_match_jax(gnss_plan):
+    """The port's library against dynadjust_tpu.ops.baseline_residuals
+    (the JAX package's tracked native/libdta_native.so) at the GNSS
+    network's pairs, observations and coordinates."""
+    from dynadjust_tpu.ops import baseline_residuals as jax_baseline
+    plan, x0 = gnss_plan
+    bn = plan.bn
+    assert jax_native._load()
+    for x in (x0, x0 + 1e-4):
+        got = native.baseline_residuals(bn.pairs, bn.obs, x)
+        want = jax_baseline(bn.pairs, bn.obs, x)
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["bi_idx_1", "bi_idx_2", "bj_idx_1",
+                                   "bj_idx_2"])
+def test_scatter_rhs_on_gnss_plan_matches_jax(gnss_plan, which):
+    """The port's scatter_rhs against the JAX package's C function from
+    its tracked native/libdta_native.so (dynadjust_tpu.ops.native._load),
+    with each of the GNSS plan's four rhs index arrays (-1 where the
+    endpoint lies in the other pool) and both signs."""
+    plan, x0 = gnss_plan
+    bn = plan.bn
+    lib = jax_native._load()
+    idx = np.ascontiguousarray(getattr(plan, which), dtype=np.int64)
+    n = int(idx.max()) + 1
+    w = np.ascontiguousarray(bn.weight, dtype=np.float64)
+    mmc = native.baseline_residuals_plain(bn.pairs, bn.obs, x0)
+    for sign in (1.0, -1.0):
+        got = native.scatter_rhs(idx, w, mmc, sign, np.zeros(n))
+        want = np.zeros(n)
+        lib.scatter_rhs(_pi(idx), _pd(w), _pd(mmc), sign, len(w), _pd(want))
+        assert np.array_equal(got, want)
+        assert _rel(got, native.scatter_rhs_plain(idx, w, mmc, sign,
+                                                  np.zeros(n))) < 1e-12

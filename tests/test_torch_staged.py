@@ -190,7 +190,8 @@ def test_device_refined_matches_jax(grid_system):
     """The flat host loop over float32 factors of host normals reaches
     the float64 solve, as the JAX package's does."""
     bs, _, pbs, _, (xi, xj) = grid_system
-    f = PS.DeviceSchurFactors(pbs, device="cpu")
+    f = PS.DeviceSchurFactors(pbs, method="inv", device_f64=False,
+                              device="cpu")
     ours = PS.schur_solve_device_refined(pbs, f)
     jf = JS.DeviceSchurFactors(bs, method="inv", device_f64=False)
     ref = JS.schur_solve_device_refined(bs, jf)
