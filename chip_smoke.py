@@ -173,7 +173,20 @@ device memory peak and the host RSS peak so far):
      within 1e-6 m), and the host sequential phased adjustment
      (--phased, and --staged-adjustment --create-stage-files
      --purge-stage-files without --tpu), which launch no kernel;
-  and the kernel held at every new (B, n) these routes launched it at.
+  and the kernel held at every new (B, n) these routes launched it at;
+  mesh (parallel/multihost.py): the two-level and the nested runs of
+     phases 3 and 6 over one nccl rank on the card (in this process) and
+     over four spawned gloo ranks sharing it (9 blocks padded to 12, 3
+     per rank), kernel launches and collectives zeroed just before each
+     run and read just after; each rank's run held to the single-device
+     run of its path (the same iterations, xyz within 1e-8 m, sigma zero
+     within 1e-9, __graft_entry__.py:133-142) and bitwise to rank 0's;
+     each gloo rank holds the kernel at its shard shapes (phase 2's
+     gates) and times it on the shared card; each run prints its wall
+     time and its all_reduce and broadcast calls and bytes per
+     iteration; then the cli's 1,600-station files through adjust
+     --phased --tpu --devices 1 held to --phased --tpu, and --devices 2
+     on a one-card machine must exit 1 naming the visible cards.
 
 Needs one card; exits non-zero when torch.cuda.is_available() is false.
 """
@@ -1864,6 +1877,210 @@ def phase_f9(work):
     return out
 
 
+# the mesh phase (parallel/multihost.py): bench.py's 10k network over one
+# nccl rank and over MESH_RANKS gloo ranks sharing the card, each rank's
+# run held to the single-device run of its path (__graft_entry__.py:
+# 133-142's bounds), every rank bitwise rank 0
+MESH_RANKS = 4
+MESH_XYZ_TOL = 1e-8
+MESH_SIGMA0_TOL = 1e-9
+
+
+def _mesh_runs(mesh, rows, cols, tile, block_super):
+    """The two-level and the nested adjustment of the network over mesh,
+    kernel launches and collectives zeroed just before each run and read
+    just after: {path: record}.  Over several ranks the nested run's
+    covariance stage takes the route past DTA_COV_DEV_BYTES (its refined
+    level-1 pools gathered on the host), the two-level run's the device
+    gather."""
+    from dynadjust_tpu_torch.parallel import multihost as mh
+    out = {}
+    for path, kw in (("two_level", {}),
+                     ("nested", dict(super_blocks=4,
+                                     block_super=block_super))):
+        net, seg = synthetic_mixed_network(rows, cols, block_rows=tile,
+                                           block_cols=tile, seed=0)
+        cov_on_host = path == "nested" and mesh.size > 1
+        if cov_on_host:
+            os.environ["DTA_COV_DEV_BYTES"] = "1"
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        batched_cholesky_inverse.launches = 0
+        batched_cholesky_inverse.shapes = {}
+        mh.reset_counts()
+        t = time.perf_counter()
+        try:
+            res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                                     mesh=mesh, **kw)
+        finally:
+            os.environ.pop("DTA_COV_DEV_BYTES", None)
+        torch.cuda.synchronize(mesh.device)
+        out[path] = dict(
+            cov_on_host=cov_on_host,
+            peak_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9,
+            wall=time.perf_counter() - t, xyz=res.xyz,
+            sigma_zero=res.sigma_zero, status=res.status,
+            iterations=res.iterations,
+            launches=batched_cholesky_inverse.launches,
+            shapes=dict(batched_cholesky_inverse.shapes),
+            counts=dict(mh.COUNTS), evidence=res.refine_evidence,
+            per_iteration=[e["collectives"] for e in res.iteration_log])
+    return out
+
+
+def _mesh_rank(mesh, rows, cols, tile, block_super, folder):
+    """One gloo rank of the mesh phase: both runs, then the kernel held
+    (phase 2's gates, which raise) and timed at each shape this rank
+    launched it at, on the card the other ranks share (after the counts
+    were read: these launches are not the path's)."""
+    out = _mesh_runs(mesh, rows, cols, tile, block_super)
+    shapes = {s for rec in out.values() for s in rec["shapes"]}
+    out["kernel"] = {shp: _hold_kernel(_spd(*shp, seed=mesh.rank))[1]
+                     for shp in sorted(shapes)}
+    with open(Path(folder) / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _per_iteration(snaps):
+    """Per-iteration (all_reduce calls, broadcasts, bytes) from the
+    cumulative snapshots of the iteration log."""
+    prev = {"all_reduce": 0, "broadcast": 0, "bytes": 0}
+    rows = []
+    for s in snaps:
+        rows.append((s["all_reduce"] - prev["all_reduce"],
+                     s["broadcast"] - prev["broadcast"],
+                     s["bytes"] - prev["bytes"]))
+        prev = s
+    return rows
+
+
+def phase_mesh(rows, cols, tile, block_super, refs):
+    """The mesh route: one nccl rank on cuda:0 in this process (the
+    kernel's shapes are those phases 2 and 5 hold), then MESH_RANKS
+    spawned gloo ranks sharing cuda:0, each holding the kernel at its
+    shard shapes; each run held to refs (the single-device results of
+    phases 3 and 6, by path).  Returns
+    (launches by path, {path: {(B, n): launches}})."""
+    import torch.distributed as dist
+    from dynadjust_tpu_torch.parallel import multihost as mh
+    runs = {}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mh.init_distributed(num_processes=1, process_id=0, backend="nccl",
+                            init_method=f"file://{tmp}/store",
+                            device="cuda:0")
+        try:
+            runs["nccl1"] = [_mesh_runs(mh.global_block_mesh(), rows, cols,
+                                        tile, block_super)]
+        finally:
+            dist.destroy_process_group()
+    _say(f"mesh nccl x 1: {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mh.spawn_ranks(_mesh_rank, MESH_RANKS, f"file://{tmp}/store",
+                       backend="gloo", device="cuda:0",
+                       args=(rows, cols, tile, block_super, tmp),
+                       timeout=900)
+        runs[f"gloo{MESH_RANKS}"] = []
+        for r in range(MESH_RANKS):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                runs[f"gloo{MESH_RANKS}"].append(pickle.load(f))
+    _say(f"mesh gloo x {MESH_RANKS} on one card (spawned, started to "
+         f"joined): {time.perf_counter() - t:.2f} s")
+    launches, shapes = {}, {}
+    for kind, ranks in runs.items():
+        for path, ref in refs.items():
+            rank0 = ranks[0][path]
+            for r, out in enumerate(ranks):
+                rec = out[path]
+                dx = float(np.abs(rec["xyz"] - ref.xyz).max())
+                ds = abs(rec["sigma_zero"] - ref.sigma_zero)
+                key = f"mesh_{kind}_{path}_rank{r}"
+                launches[key] = rec["launches"]
+                shapes[key] = dict(rec["shapes"])
+                _say(f"mesh {kind} {path} rank {r}/{len(ranks)}: "
+                     f"{rec['status']} in {rec['iterations']} iterations "
+                     f"(single device {ref.iterations}), wall "
+                     f"{rec['wall']:.2f} s, peak device memory "
+                     f"{rec['peak_gb']:.3f} GB (covariance pools gathered "
+                     f"on the {'host' if rec['cov_on_host'] else 'device'}"
+                     f"), xyz {dx:.3e} m (<= "
+                     f"{MESH_XYZ_TOL:g}), sigma0 {ds:.3e} (<= "
+                     f"{MESH_SIGMA0_TOL:g}), chol_inv launches "
+                     f"{rec['launches']} {rec['shapes']}; collectives "
+                     f"{rec['counts']}; per iteration (all_reduce, "
+                     f"broadcast, bytes) {_per_iteration(rec['per_iteration'])}"
+                     f"; refine evidence {rec['evidence']}")
+                _check(rec["status"] == "Converged"
+                       and rec["iterations"] == ref.iterations,
+                       f"{key}: {rec['status']} in {rec['iterations']}")
+                _check(dx <= MESH_XYZ_TOL and ds <= MESH_SIGMA0_TOL,
+                       f"{key}: xyz {dx}, sigma0 {ds}")
+                _check(rec["launches"] > 0, f"{key} launched the kernel")
+                _check(rec["counts"]["all_reduce"] > 0,
+                       f"{key} summed over the ranks")
+                _check(np.array_equal(rec["xyz"], rank0["xyz"])
+                       and rec["sigma_zero"] == rank0["sigma_zero"],
+                       f"{key} is bitwise rank 0")
+    for r, out in enumerate(runs[f"gloo{MESH_RANKS}"]):
+        for (B, n), g in out["kernel"].items():
+            _say(f"mesh gloo{MESH_RANKS} rank {r} kernel ({B}, {n}) on the "
+                 f"shared card: {g['ms']:.3f} ms per call (plain "
+                 f"{g['plain_ms']:.1f}, library {g['library_ms']:.3f}), "
+                 f"max|kernel-plain| {g['max_abs_err']:.3e}")
+    return launches, shapes
+
+
+def phase_mesh_cli(work):
+    """adjust --phased --tpu --devices 1 (one nccl rank in this process)
+    on the cli phase's 1,600-station DNA files, held to the single-device
+    --phased --tpu run; --devices 2 on a one-card machine exits 1 with the
+    JAX CLI's message."""
+    d = Path(work) / "mesh_cli"
+    d.mkdir()
+    files = _dna_inputs(d, "n40", 40, 40)
+    res, out = {}, {"launches": {}, "shapes": {}}
+    for key, extra in (("single", []), ("devices1", ["--devices", "1"])):
+        f = d / key
+        f.mkdir()
+        _verb(f, "import", "-n", "n40", *files)
+        _verb(f, "segment", "n40", "--min-inner-stns", "300",
+              "--max-block-stns", "600")
+        r, t, steps, launches, shapes, summary = _cli_adjust(
+            f, "n40", ["--phased", "--tpu", *extra])
+        res[key] = r
+        out["launches"][f"cli_mesh_{key}"] = launches
+        out["shapes"][f"cli_mesh_{key}"] = list(shapes)
+        _say(f"mesh cli 40x40 {key}: adjust {t:.2f} s; "
+             f"{' | '.join(summary)}; chol_inv launches {launches} "
+             f"{shapes}")
+        _check(launches > 0, f"mesh cli {key} launched the kernel")
+    a, b = res["devices1"], res["single"]
+    dx = float(np.abs(a.xyz - b.xyz).max())
+    ds = abs(a.sigma_zero - b.sigma_zero)
+    _say(f"mesh cli --devices 1 vs single: {a.iterations} iterations "
+         f"({b.iterations}), saved xyz {dx:.3e} m (<= {MESH_XYZ_TOL:g}), "
+         f"sigma0 {ds:.3e} (<= {MESH_SIGMA0_TOL:g})")
+    _check(a.status == "Converged" and a.iterations == b.iterations
+           and dx <= MESH_XYZ_TOL and ds <= MESH_SIGMA0_TOL,
+           "mesh cli --devices 1 against the single-device run")
+    ncard = torch.cuda.device_count()
+    if ncard == 1:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["adjust", "n40", "--phased", "--tpu",
+                           "--devices", "2", "--output-folder",
+                           str(d / "single")])
+        msg = "--devices 2 but only 1 devices visible"
+        _say(f"mesh cli --devices 2 on one card: exit {rc}; "
+             f"{err.getvalue().strip()}")
+        _check(rc == 1 and msg in err.getvalue(),
+               "--devices 2 on one card exits 1 with the message")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1921,6 +2138,14 @@ def main() -> int:
         _say(f"phase nested {route} card-vs-cpu: "
              f"{time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_shapes = phase_mesh(
+        rows, cols, tile, block_super,
+        {"two_level": flat, "nested": nested_res})
+    torch.cuda.empty_cache()
+    _say(f"phase mesh: {time.perf_counter() - t:.2f} s")
+
     # the host routes: staged nested factors, host assembly, and the
     # national network past the device-solve budget
     host_launches, host_shapes = {}, {}
@@ -1958,6 +2183,11 @@ def main() -> int:
 
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
+        mesh_cli = phase_mesh_cli(work)
+    _say(f"phase mesh cli: {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
         pipe = phase_pipeline(work)
     torch.cuda.empty_cache()
     _say(f"phase pipeline: {time.perf_counter() - t:.2f} s; verbs (s): "
@@ -1974,7 +2204,8 @@ def main() -> int:
     t = time.perf_counter()
     cli_paths = {}
     for path, shps in {**clirun["shapes"], **pipe["shapes"],
-                       **fmts["shapes"], **f9["shapes"]}.items():
+                       **fmts["shapes"], **f9["shapes"],
+                       **mesh_cli["shapes"]}.items():
         for shp in shps:
             cli_paths.setdefault(shp, []).append(path)
     kern_cli = {}
@@ -2000,6 +2231,21 @@ def main() -> int:
     _say(f"phase kernel host-route shapes {sorted(host_paths)} (held "
          f"{sorted(kern_host)}): {time.perf_counter() - t:.2f} s")
 
+    # ... and at the mesh route's shard shapes (the level-1 shard of each
+    # rank, the replicated level 2), timed here alone on the card
+    t = time.perf_counter()
+    mesh_paths = {}
+    for path, shps in mesh_shapes.items():
+        for shp in shps:
+            mesh_paths.setdefault(shp, []).append(path)
+    kern_mesh = {}
+    for shp in sorted(mesh_paths):
+        if shp not in ((B, ni), (SB, ni2)):
+            kern_mesh[shp] = _hold_kernel(_spd(*shp))[1]
+            torch.cuda.empty_cache()
+    _say(f"phase kernel mesh shapes {sorted(mesh_paths)} (held "
+         f"{sorted(kern_mesh)}): {time.perf_counter() - t:.2f} s")
+
     # launches: the nested path's warm run; the two-level path's, the
     # cold nested run's and the CLI routes' beside it
     _say(json.dumps({"kernels": [{
@@ -2014,7 +2260,8 @@ def main() -> int:
                              **pipe["launches"], **fmts["launches"],
                              **{f"gnss_device_{label}": g[0]
                                 for label, g in gnss.items()},
-                             **f9["launches"]},
+                             **f9["launches"], **mesh_launches,
+                             **mesh_cli["launches"]},
         **kern, "level2": {"shape": [int(SB), int(ni2)], **kern2},
         "dense": {"shape": [int(Bd), int(nd)], **kern_cli[(Bd, nd)]},
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],
@@ -2024,7 +2271,11 @@ def main() -> int:
                         for b, n in sorted(kern_host)],
         "gnss": [{"shape": [int(b), int(n)],
                   "paths": [f"gnss_device_{label}"], **g[2]["kernel"]}
-                 for label, g in gnss.items() for b, n in g[1]]}]}))
+                 for label, g in gnss.items() for b, n in g[1]],
+        "mesh": [{"shape": [int(b), int(n)], "paths": mesh_paths[(b, n)],
+                  "launches": sum(mesh_shapes[p][(b, n)]
+                                  for p in mesh_paths[(b, n)]),
+                  **kern_mesh[(b, n)]} for b, n in sorted(kern_mesh)]}]}))
     _say(card_line())
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,17 @@ The same tile plan with float64 values gives the one-time float64
 normals pools of the covariance stage (build_f64), formed as the Gram
 product of V^{-1/2}A in native float64.
 
-Port of the JAX package's ``adjust/device_assembly.py`` for one device:
-the host plans (_compile_tiles, _compile_weights, set_constraints, the
-gram plan, rhs_pools, matvec) are copied; the device programs are torch
-operations.  Past DTA_BUILD_HBM_BUDGET the build runs in block chunks.
+Port of the JAX package's ``adjust/device_assembly.py``: the host plans
+(_compile_tiles, _compile_weights, set_constraints, the gram plan,
+rhs_pools, matvec) are copied; the device programs are torch operations.
+Past DTA_BUILD_HBM_BUDGET the build runs in block chunks.
+
+With a mesh (parallel/multihost.py) the block axis is padded to a
+multiple of the ranks (padding blocks: zero design rows, identity Nii
+through the pad tiles); every rank keeps the full (small) plans, builds
+only its shard of the pools (in one pass: no chunked build), and the
+host operators (rhs_pools, matvec) run over its blocks and are gathered
+or summed over the ranks, so every rank holds the same results.
 """
 
 from __future__ import annotations
@@ -46,12 +53,15 @@ class DeviceAssembly:
     (Nii, Nij, Njj) float32 pools.
     """
 
-    def __init__(self, blocks, part, basis, first_fwd, device="cuda"):
+    def __init__(self, blocks, part, basis, first_fwd, device="cuda",
+                 mesh=None):
         self.blocks = blocks
         self.part = part
         self.basis = basis
         self.dtype = torch.float32
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         B = len(blocks)
         self.B = B
 
@@ -68,7 +78,11 @@ class DeviceAssembly:
         nj_global = int(max((int(np.max(p[2])) for p in part if len(p[2])),
                             default=-1)) + 1
         self.nj_global = nj_global
-        self.Bp = B                             # one device: no padding
+        # a mesh pads the block axis to a multiple of its ranks, so that
+        # every rank holds an equal shard [lo, hi) of the pools
+        self.Bp = mesh.padded(B) if mesh is not None else B
+        sh = mesh.shard(self.Bp) if mesh is not None else slice(0, B)
+        self.lo, self.hi = sh.start, sh.stop
 
         # ---- per-block station-slot permutation -------------------------
         # part[b] indices are station-granular triples; slot of station
@@ -274,6 +288,11 @@ class DeviceAssembly:
                 cb.append(b)
                 cc.append(q)
                 cv.append(np.eye(3))
+        for b in range(self.B, self.Bp):        # mesh padding blocks
+            for q in range(self.ni // 3):
+                cb.append(b)
+                cc.append(q)
+                cv.append(np.eye(3))
         self._d_b_h = np.asarray(cb, dtype=np.int32)
         c = np.asarray(cc, dtype=np.int32)
         self._d_c3_h = 3 * c[:, None] + np.arange(3, dtype=np.int32)
@@ -359,7 +378,8 @@ class DeviceAssembly:
         if plan is not None:
             return plan
         pr = self._putr
-        t0, t1 = int(self._t_range[b0]), int(self._t_range[b1])
+        t0 = int(self._t_range[min(b0, self.B)])
+        t1 = int(self._t_range[min(b1, self.B)])
         buckets = []
         for (k, bb, rr, V), (_, bbd, rrd, Vd) in zip(self._v_buckets64_h,
                                                     self._v_buckets):
@@ -418,10 +438,13 @@ class DeviceAssembly:
         already on the device (any float dtype; DeviceRefinedSolve
         uploads it once per iteration for both the build and the solve),
         else gathered from the host fill.  Past DTA_BUILD_HBM_BUDGET the
-        build runs in block chunks."""
+        build runs in block chunks.  Under a mesh: this rank's shard
+        [lo, hi) of the pools, in one pass."""
         if values is None:
             values = self.scalar_values(np.float32)
         vals = torch.as_tensor(values, device=self.device).to(self.dtype)
+        if self.mesh is not None:
+            return self._build_range(vals, self.lo, self.hi)
         C = self._auto_chunk_blocks()
         if C >= self.Bp:
             return self._build_range(vals, 0, self.Bp)
@@ -435,18 +458,28 @@ class DeviceAssembly:
         Formed as the Gram product N = B̃ᵀB̃ with B̃ = V^{-1/2}A (weighted,
         projected, permuted — assembled on host as sparse float64 tiles,
         scattered on the device) in native float64.  Constraint/pad
-        diagonal tiles are added exactly afterwards."""
+        diagonal tiles are added exactly afterwards.  Under a mesh: this
+        rank's shard [lo, hi) of the pools."""
         if not hasattr(self, "_g_idx"):
             self._compile_gram_plan()
         vals = self._putr(self._gram_values())
         gb, gr, gc3 = self._g_idx
-        B64 = torch.zeros((self.Bp, self.M, self.Pp), dtype=torch.float64,
-                          device=self.device)
+        db, dc3, dv = self._d_b, self._d_c3, self._d_v64
+        if self.mesh is not None:
+            t0 = int(self._g_range[min(self.lo, self.B)])
+            t1 = int(self._g_range[min(self.hi, self.B)])
+            gb, gr, gc3 = gb[t0:t1] - self.lo, gr[t0:t1], gc3[t0:t1]
+            vals = vals[t0:t1]
+            ds = self._putr(np.nonzero((self._d_b_h >= self.lo)
+                                       & (self._d_b_h < self.hi))[0])
+            db, dc3, dv = db[ds] - self.lo, dc3[ds], dv[ds]
+        B64 = torch.zeros((self.hi - self.lo, self.M, self.Pp),
+                          dtype=torch.float64, device=self.device)
         B64[gb[:, None], gr[:, None], gc3] = vals
         N = B64.transpose(1, 2) @ B64
         del B64
-        N.index_put_((self._d_b[:, None, None], self._d_c3[:, :, None],
-                      self._d_c3[:, None, :]), self._d_v64, accumulate=True)
+        N.index_put_((db[:, None, None], dc3[:, :, None], dc3[:, None, :]),
+                     dv, accumulate=True)
         ni = self.ni
         return N[:, :ni, :ni], N[:, :ni, ni:], N[:, ni:, ni:]
 
@@ -634,11 +667,17 @@ class DeviceAssembly:
                 v[3 * l:3 * l + 3] = Pg @ v[3 * l:3 * l + 3]
         return v
 
+    def _my_blocks(self):
+        """The real blocks of this rank's shard (all without a mesh)."""
+        return range(self.lo, min(self.hi, self.B))
+
     def rhs_pools(self):
-        """Host f64 (bi, bj) pools: AᵀV⁻¹·mmc, projected + permuted."""
-        bi = np.zeros((self.Bp, self.ni))
-        bj = np.zeros((self.Bp, self.nj))
-        for b, blk in enumerate(self.blocks):
+        """Host f64 (bi, bj) pools: AᵀV⁻¹·mmc, projected + permuted (this
+        rank's blocks, gathered under a mesh)."""
+        bi = np.zeros((self.hi - self.lo, self.ni))
+        bj = np.zeros((self.hi - self.lo, self.nj))
+        for b in self._my_blocks():
+            blk = self.blocks[b]
             asm = blk.asm
             if not hasattr(asm, "_w_rows"):
                 asm._compile_weight_plan()
@@ -647,19 +686,24 @@ class DeviceAssembly:
             rhs = asm.A.T @ self._apply_v(asm, asm.mmc)
             rhs = self._project_strips(blk, rhs)
             inner_p, junc_p, _ = self.part[b]
-            bi[b, :len(inner_p)] = rhs[inner_p]
-            bj[b, :len(junc_p)] = rhs[junc_p]
+            bi[b - self.lo, :len(inner_p)] = rhs[inner_p]
+            bj[b - self.lo, :len(junc_p)] = rhs[junc_p]
+        if self.mesh is not None:
+            from ..parallel.multihost import gather_np
+            bi, bj = gather_np(bi, self.mesh), gather_np(bj, self.mesh)
         return bi, bj
 
     def matvec(self, xi, xj):
         """y = N x in f64 on host through A (the refinement residual
         operator): y = P AᵀV⁻¹A P x + C x per block, junction rows
         accumulated globally — replaces _block_matvec when no host f64
-        normals exist."""
-        yi = np.zeros((self.Bp, self.ni))
+        normals exist.  Under a mesh each rank runs its own blocks: yi is
+        gathered and yj summed over the ranks."""
+        yi = np.zeros((self.hi - self.lo, self.ni))
         yj = np.zeros(self.nj_global + 1)
         xj_pad = np.concatenate([np.asarray(xj, dtype=np.float64), [0.0]])
-        for b, blk in enumerate(self.blocks):
+        for b in self._my_blocks():
+            blk = self.blocks[b]
             asm = blk.asm
             inner_p, junc_p, junc_g = self.part[b]
             n = asm.A.shape[1]
@@ -674,9 +718,12 @@ class DeviceAssembly:
             y = self._project_strips(blk, y)
             # constant diagonal terms (constraints / basis pins)
             y += self._diag_matvec(b, x)
-            yi[b, :len(inner_p)] = y[inner_p]
+            yi[b - self.lo, :len(inner_p)] = y[inner_p]
             if len(junc_p):
                 np.add.at(yj, junc_g, y[junc_p])
+        if self.mesh is not None:
+            from ..parallel.multihost import gather_np, psum_np
+            yi, yj = gather_np(yi, self.mesh), psum_np(yj, self.mesh)
         return yi, yj[:self.nj_global]
 
     def _diag_matvec(self, b, x):

@@ -161,10 +161,15 @@ def pool_bytes(da) -> float:
     return float(da.Bp) * da.M * da.Pp * 8.0
 
 
-def want_device_solve(da) -> bool:
-    """Route the solve through the device refined solve?  DTA_DEVICE_SOLVE
-    1 or 0 forces the answer; otherwise the float64 design pool must fit
+def want_device_solve(da, mesh=None, staged: bool = False) -> bool:
+    """Route the solve through the device refined solve?  A mesh or staged
+    factors always keep the host refinement loop (its residual operator
+    runs over each rank's blocks and is summed over the ranks;
+    DeviceAssembly.matvec).  Else DTA_DEVICE_SOLVE 1 or 0 forces the
+    answer; otherwise the float64 design pool must fit
     DTA_DEVICE_SOLVE_BYTES (8e9) alongside the factor pools."""
+    if mesh is not None or staged:
+        return False
     v = os.environ.get("DTA_DEVICE_SOLVE", "")
     if v in ("0", "1"):
         return v == "1"

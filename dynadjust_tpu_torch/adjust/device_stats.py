@@ -158,7 +158,7 @@ def device_block_stats(da, bs, cov_factors=None, nested=None,
         Ainv, Y = factors._cov_l1_dev or factors._cov_l1_h
         A2d, Y2d, Sd = factors._l2_dev_refined
         djg = factors.djg_np
-        di = factors.factors[5]
+        di = factors.stats_di()
     di = di.to(torch.float64)
 
     for c0 in range(0, B, chunk):
@@ -175,7 +175,11 @@ def device_block_stats(da, bs, cov_factors=None, nested=None,
         Pmat_c = da.Pmat64[sl] if da._has_proj else None
         common = (A64, Pmat_c, da._putr(bb), da._putr(r3))
         if nested is None:
-            ap, d3, v = _flat_chunk(Ainv[sl], Y[sl], Sinv, di[sl], djg,
+            # the refined pools: device tensors, or host arrays when a
+            # mesh gathered them past DTA_COV_DEV_BYTES
+            ap, d3, v = _flat_chunk(torch.as_tensor(Ainv[sl], device=dev),
+                                    torch.as_tensor(Y[sl], device=dev),
+                                    Sinv, di[sl], djg,
                                     da._putr(jmap_np), da._putr(jmask_np),
                                     *common)
         else:

@@ -1,5 +1,5 @@
 """Blocked Schur adjustment (two-level, or nested three-level) of real
-(all-measurement-type) networks on one device.
+(all-measurement-type) networks on one device or over a mesh.
 
 The replacement for the reference's phased adjustment
 (`adjust --phased`): instead of the strictly sequential
@@ -24,8 +24,10 @@ assembly (DTA_HOST_ASSEMBLY=1, and always when staged); the device
 refined solve while the float64 design pool fits DTA_DEVICE_SOLVE_BYTES
 (adjust/device_solve.py::want_device_solve), else the host refinement
 loop of parallel/schur.py; resident or host-streamed (staged) nested
-factors.  The JAX package's mesh (multi-device) route is not part of
-this package.
+factors; and the mesh route (parallel/multihost.py: one rank per device,
+the block pools, level-1 factors and applies sharded over the ranks, the
+junction sums over all_reduce, the host refinement loop and the
+statistics on every rank).
 """
 
 from __future__ import annotations
@@ -155,8 +157,8 @@ def adjust_tpu_blocked(net: NetworkData,
                        super_blocks: int = 0,
                        staged: bool = False,
                        block_super: np.ndarray | None = None,
-                       device="cuda") -> AdjustmentResult:
-    """Blocked Schur adjustment on one device.
+                       device="cuda", mesh=None) -> AdjustmentResult:
+    """Blocked Schur adjustment on one device, or over the ranks of mesh.
 
     super_blocks > 0 routes the solve through the three-level nested
     Schur factors (parallel/schur.py::NestedSchurFactors) — the
@@ -180,6 +182,17 @@ def adjust_tpu_blocked(net: NetworkData,
     default: the level-1 and level-2 factors are the hand-written
     kernel) or "cpu" (every kernel's plain PyTorch version).
 
+    mesh: a parallel/multihost.py Mesh — the multi-device route (JAX:
+    a jax.sharding.Mesh with a "blocks" axis).  Every rank calls this
+    with the same network; the assembly pools, level-1 factors and
+    applies are sharded over the ranks (on mesh.device, which replaces
+    device), the junction reductions are summed with all_reduce, the
+    solve keeps the host refinement loop, and the refined factor pools
+    are gathered once so that every rank runs the same statistics.
+    Every rank returns the same result; a rank whose adjusted xyz is not
+    bitwise rank 0's raises.  staged with a mesh raises (the
+    host-streamed factors are single-device).
+
     With DTA_PROFILE set, result.profile also holds "route": the
     assembly ("device"/"host"), the solve ("device"/"host loop") and the
     float64 design pool's bytes (device assembly only)."""
@@ -196,7 +209,10 @@ def adjust_tpu_blocked(net: NetworkData,
     if block_super is not None and super_blocks == 0:
         raise ValueError("block_super given but super_blocks == 0 — the "
                          "nested path is not active")
-    device = torch.device(device)
+    if staged and mesh is not None:
+        raise ValueError("staged (host-streamed) factors are "
+                         "single-device")
+    device = torch.device(mesh.device if mesh is not None else device)
     opts = options or AdjustmentOptions()
     t0 = time.time()
     if seg is None:
@@ -243,11 +259,13 @@ def adjust_tpu_blocked(net: NetworkData,
                   and os.environ.get("DTA_HOST_ASSEMBLY", "") != "1")
     da = matvec = dev_solver = None
     if device_asm:
-        da = DeviceAssembly(blocks, part, basis, first_fwd, device=device)
+        da = DeviceAssembly(blocks, part, basis, first_fwd, device=device,
+                            mesh=mesh)
         matvec = da.matvec
         # the device refined solve (device_solve.py) while the float64
-        # design pool fits the budget, else the host refinement loop
-        if want_device_solve(da):
+        # design pool fits the budget, else (and always with a mesh) the
+        # host refinement loop
+        if want_device_solve(da, mesh, staged):
             dev_solver = DeviceRefinedSolve(da)
     prof = ({"setup": 0.0, "fill": 0.0, "normals": 0.0, "rhs": 0.0,
              "build": 0.0, "factor": 0.0, "solve": 0.0, "update": 0.0,
@@ -330,7 +348,10 @@ def adjust_tpu_blocked(net: NetworkData,
         solve_ev = None
         if super_blocks > 0:
             if nested_part is None:
-                nested_part = build_nested_partition(bs, block_super)
+                # a mesh's padding blocks join super-block 0 (they touch
+                # no junction parameter)
+                nested_part = build_nested_partition(bs, np.concatenate(
+                    [block_super, np.zeros(len(bs.jmap) - B, np.int64)]))
             with record_function("dta.factor"):
                 if not refactor:
                     factors.bs = bs
@@ -344,7 +365,7 @@ def adjust_tpu_blocked(net: NetworkData,
                     factors = None
                 if factors is None and not staged:
                     factors = NestedSchurFactors(bs, nested_part,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
                 _sync()
             _lap("factor")
             if dev_solver is not None:
@@ -353,7 +374,7 @@ def adjust_tpu_blocked(net: NetworkData,
             else:
                 xi, xj, factors = schur_solve_nested_factored(
                     bs, nested_part, factors=factors, streamed=staged,
-                    matvec=matvec, device=device)
+                    matvec=matvec, device=device, mesh=mesh)
             if device_asm:
                 # the nested factors are self-contained: the float32
                 # pools are rebuilt at the next re-linearisation — free
@@ -367,7 +388,7 @@ def adjust_tpu_blocked(net: NetworkData,
                 if factors is None:
                     factors = DeviceSchurFactors(bs, method="inv",
                                                  device_f64=False,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
                 elif refactor:
                     factors.update(bs)
                 else:
@@ -407,6 +428,11 @@ def adjust_tpu_blocked(net: NetworkData,
         _iter_range.__exit__(None, None, None)
         if solve_ev is not None:
             entry.update(solve_ev)      # solve_rel / solve_rounds
+        if mesh is not None:
+            # cumulative collectives of this process (calls and bytes):
+            # per-iteration deltas give each iteration's traffic
+            from ..parallel.multihost import COUNTS
+            entry["collectives"] = dict(COUNTS)
         it_log.append(entry)
         _lap("update")
         converged = abs(max_corr) <= opts.iteration_threshold
@@ -427,6 +453,11 @@ def adjust_tpu_blocked(net: NetworkData,
         status = "Failed to converge"
     if abs(max_corr) > opts.iteration_threshold:
         status = "Failed to converge"
+    if mesh is not None:
+        # every rank applied the same gathered corrections: ranks that
+        # drift apart are a fault
+        from ..parallel.multihost import check_replicated
+        check_replicated(xyz_all, mesh, "the adjusted xyz")
 
     # ---- statistics from the factored covariances -------------------------
     _t_stats = time.perf_counter()
@@ -467,6 +498,18 @@ def adjust_tpu_blocked(net: NetworkData,
     _subt("stats.f64build")
     if super_blocks == 0:
         cov_factors = factors.newton_factors(N64=N64)
+        if mesh is not None and mesh.size > 1:
+            # the refined level-1 pools are block-sharded: gather them once
+            # so that every rank runs the same statistics (the junction
+            # inverse and djg are replicated already), on the host when
+            # the full pools pass DTA_COV_DEV_BYTES, as the nested route's
+            from ..parallel.schur import cov_fits_device, gather_pools
+            A64, Y64, Si64, di64, dj64, djg64, _ = cov_factors
+            on_dev = cov_fits_device(A64.shape[0] * mesh.size,
+                                     A64.shape[1], Y64.shape[2])
+            cov_factors = (*gather_pools((A64, Y64), mesh, on_dev), Si64,
+                           *gather_pools((di64, dj64), mesh, True), djg64,
+                           None)
     else:
         cov_factors = None
         factors.newton_refine_cov(N64=N64)

@@ -38,9 +38,16 @@ sweeps with ``--block1-phased``, and, with ``--phased`` or
 exit non-zero before their first stage when the card they ask for is
 absent.  The host route needs no card and ``--device`` does not touch
 it.  ``reftran``, ``geoid``, ``metadata``, ``diff`` and ``plot``
-(matplotlib, imported when the verb runs) are host code.  ``--devices``
-(multi-device) is not ported yet: it exits non-zero, naming the
-ROADMAP.md item that ports it.
+(matplotlib, imported when the verb runs) are host code.
+``adjust --phased --tpu --devices N`` (and ``dynadjust``) shards the
+blocked adjustment over N ranks (parallel/multihost.py): N local ranks
+(torch.multiprocessing, spawn; rank r on cuda:r over nccl, or on the CPU
+over gloo with --device cpu), this process being rank 0; or, with
+DTA_COORDINATOR / DTA_NUM_PROCESSES / DTA_PROCESS_ID set, this process
+joins that group as one rank.  Rank 0 alone prints and writes the
+adjustment's output files; under DTA_COORDINATOR, dynadjust's stages
+before adjust run on rank 0 alone while the other ranks wait, then
+every rank reads their files (a folder that every rank sees).
 
 Parity reference: per-tool wrappers dna*wrapper/*.cpp and the dynadjust
 pipeline (dynadjust/dynadjust.cpp:96-427) of DynAdjust.
@@ -53,14 +60,133 @@ import os
 import sys
 import time
 
-def _refuse_unported(args) -> bool:
-    """Print an error and return True when args ask for multi-device
-    sharding (--devices), the one module this package does not hold."""
-    if not getattr(args, "devices", None):
+def _mesh_route(args) -> bool:
+    """Whether this command runs the mesh route: --devices N on an
+    adjust stage that takes the blocked device solve (--phased or
+    --staged-adjustment with --tpu, not --block1-phased); elsewhere
+    --devices is ignored, as in the JAX CLI."""
+    return bool(getattr(args, "devices", 0) and _runs_adjust(args)
+                and not args.report_mode and args.tpu
+                and not args.block1_phased
+                and (args.phased or args.staged_adjustment))
+
+
+def _refuse_devices(args) -> bool:
+    """Print an error and return True for a --devices request that cannot
+    run: with --staged-adjustment, or more local cards than are
+    visible."""
+    if not _mesh_route(args):
         return False
-    print("- Error: not ported to dynadjust_tpu_torch yet: --devices "
-          "(ROADMAP.md M7)", file=sys.stderr)
-    return True
+    if args.staged_adjustment:
+        # the host-streamed factors are single-device; a mesh would raise
+        # deep inside adjust_tpu_blocked
+        print("- Error: --devices cannot be combined with "
+              "--staged-adjustment (host-streamed factors are "
+              "single-device)", file=sys.stderr)
+        return True
+    if args.device == "cuda" and not os.environ.get("DTA_COORDINATOR"):
+        import torch
+        ncard = torch.cuda.device_count()
+        if args.devices > ncard:
+            print(f"- Error: --devices {args.devices} but only {ncard} "
+                  f"devices visible", file=sys.stderr)
+            return True
+    return False
+
+
+def _run_as_rank(args) -> int:
+    """Run the command as one rank of the group that DTA_COORDINATOR,
+    DTA_NUM_PROCESSES and DTA_PROCESS_ID describe (one process per card
+    on each host): every rank runs the adjustment, rank 0 alone prints
+    and writes.  dynadjust's stages before adjust run on rank 0 alone;
+    the other ranks wait for them and then read the files they wrote,
+    so the output folder must be one that every rank sees."""
+    import contextlib
+    import torch.distributed as dist
+    from .parallel import multihost as mh
+    mh.init_distributed(cpu=args.device == "cpu")
+    try:
+        world = dist.get_world_size()
+        if world != args.devices:
+            print(f"- Error: --devices {args.devices} but the distributed "
+                  f"run has {world} ranks (DTA_NUM_PROCESSES)",
+                  file=sys.stderr)
+            return 1
+        args.rank = dist.get_rank()
+        if args.rank == 0 and not getattr(args, "quiet", False):
+            return args.func(args)
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            return args.func(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank0_value(v: int) -> int:
+    """Rank 0's v on every rank of the distributed run: an all_reduce of
+    rank 0's v and the other ranks' zeros."""
+    import torch
+    from .parallel import multihost as mh
+    mesh = mh.global_block_mesh()
+    t = torch.tensor([v if mesh.rank == 0 else 0], dtype=torch.int64,
+                     device=mesh.host_device)
+    return int(mh.psum(t, mesh).item())
+
+
+def _adjust_rank(mesh, net, opts, seg_file, kw):
+    """A local helper rank of adjust --devices: the same adjustment, its
+    result dropped (rank 0 reports)."""
+    import contextlib
+    from .adjust.tpu_blocked import adjust_tpu_blocked
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        adjust_tpu_blocked(net, opts, seg_file, mesh=mesh, **kw)
+
+
+def _adjust_on_devices(args, net, opts, seg_file, kw):
+    """adjust_tpu_blocked over args.devices ranks.  Inside a distributed
+    run (_run_as_rank) this process is one rank: returns the result on
+    rank 0 and None on the others.  Otherwise this process is rank 0 of
+    a local group: ranks 1 .. N-1 are spawned (the network and options
+    pickled to them), the group meets in a file store, every rank
+    adjusts, and the helpers are joined (killed past the time limit; a
+    failed rank raises)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from .adjust.tpu_blocked import adjust_tpu_blocked
+    from .parallel import multihost as mh
+    if dist.is_initialized():
+        mesh = mh.global_block_mesh()
+        res = adjust_tpu_blocked(net, opts, seg_file, mesh=mesh, **kw)
+        return res if mesh.rank == 0 else None
+    world = args.devices
+    cpu = args.device == "cpu"
+    backend, device = mh.placement(world, device="cpu" if cpu else None)
+    if not cpu:
+        # build the kernels once here, before the ranks would race on it
+        from .ops import kernels
+        kernels.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/store"
+        procs = mh.start_ranks(_adjust_rank, range(1, world), world, init,
+                               backend, device,
+                               args=(net, opts, seg_file, kw),
+                               threads=torch.get_num_threads())
+        try:
+            mh.init_distributed(num_processes=world, process_id=0,
+                                init_method=init, backend=backend,
+                                device=device or "cuda:0")
+            try:
+                res = adjust_tpu_blocked(net, opts, seg_file,
+                                         mesh=mh.global_block_mesh(), **kw)
+            finally:
+                dist.destroy_process_group()
+        except BaseException:
+            for p in procs:
+                p.kill()
+            raise
+        mh.join_ranks(procs)
+    return res
 
 
 def _runs_adjust(args) -> bool:
@@ -983,10 +1109,16 @@ def _cmd_adjust(args) -> int:
             # factors when staged) instead of the sequential
             # forward/reverse/combine sweeps
             from .adjust.tpu_blocked import adjust_tpu_blocked
-            res = adjust_tpu_blocked(
-                net, opts, seg_file,
-                super_blocks=getattr(args, "tpu_super_blocks", 0),
-                staged=bool(args.staged_adjustment), device=args.device)
+            kw = dict(super_blocks=getattr(args, "tpu_super_blocks", 0),
+                      staged=bool(args.staged_adjustment))
+            if _mesh_route(args):
+                # multi-device: the blocks sharded over the ranks
+                res = _adjust_on_devices(args, net, opts, seg_file, kw)
+                if res is None:
+                    return 0            # a rank other than 0 reports nothing
+            else:
+                res = adjust_tpu_blocked(net, opts, seg_file,
+                                         device=args.device, **kw)
         else:
             from .adjust.phased import adjust_phased
             res = adjust_phased(
@@ -1223,6 +1355,15 @@ def _cmd_dynadjust(args) -> int:
         print("error: no input files (use positional files or -p)",
               file=sys.stderr)
         return 1
+    rank = getattr(args, "rank", None)
+    if rank:
+        # another rank of a distributed run (_run_as_rank): rank 0 alone
+        # runs the stages before adjust, writing their files and the
+        # log; this rank waits for its exit code, then joins the adjust
+        # stage on the files rank 0 wrote
+        rc = _rank0_value(0)
+        run_adjust = args.run_adjust if explicit else True
+        return rc or (_cmd_adjust(args) if run_adjust else 0)
     if getattr(args, "export_project", ""):
         from .io_formats.dnaproj import write_dnaproj
         import os as _os
@@ -1300,11 +1441,19 @@ def _cmd_dynadjust(args) -> int:
         ("adjust", _cmd_adjust,
          args.run_adjust if explicit else True),
     ]
-    rc = 0
-    for name, fn, enabled in stages:
-        rc = _stage(name, fn, enabled)
-        if rc:
-            break
+    rc, shared = 0, 1
+    try:
+        for name, fn, enabled in stages[:-1]:
+            rc = _stage(name, fn, enabled)
+            if rc:
+                break
+        shared = rc
+    finally:
+        if rank == 0:
+            # release the other ranks (with 1 when a stage raised)
+            _rank0_value(shared)
+    if not rc:
+        rc = _stage(*stages[-1])
     log.close()
     return rc
 
@@ -1482,7 +1631,11 @@ def _add_adjust_args(p):
                         "kernel's plain PyTorch version); the host route "
                         "(no --tpu) runs on the host either way")
     p.add_argument("--devices", type=int, default=0,
-                   help="multi-device sharding (not ported: ROADMAP.md M7)")
+                   help="with --phased --tpu: shard the adjustment over "
+                        "this many ranks, one per device (local ranks on "
+                        "cuda:0..N-1 over nccl, or CPU ranks over gloo "
+                        "with --device cpu). Multi-host via "
+                        "DTA_COORDINATOR/DTA_NUM_PROCESSES/DTA_PROCESS_ID")
     p.add_argument("--tpu-super-blocks", type=int, default=0,
                    help="with --phased --tpu: group the segmentation "
                         "blocks into this many super-blocks and solve "
@@ -2216,13 +2369,15 @@ def main(argv=None) -> int:
         args._project_filled = filled
     if getattr(args, "multi_thread", False):
         args.phased = True
-    if _refuse_unported(args) or _refuse_missing_card(args):
+    if _refuse_missing_card(args) or _refuse_devices(args):
         return 1
     if hasattr(args, "network_name") and not args.network_name and \
             args.command in ("reftran", "segment", "adjust", "plot"):
         print("error: network name required (positional or via "
               "-p project file)", file=sys.stderr)
         return 1
+    if _mesh_route(args) and os.environ.get("DTA_COORDINATOR"):
+        return _run_as_rank(args)
     if getattr(args, "quiet", False):
         import contextlib
         import io as _io

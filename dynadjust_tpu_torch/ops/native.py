@@ -4,7 +4,8 @@ Port of the JAX package's ``ops/native.py``: plain C++ on the host (no
 device code) for a blocked float64 matvec, GNSS baseline residuals and
 the rhs scatter.  In the JAX package the matvec is the host refinement
 loop's block products and the other two serve the GNSS-only assembly
-(M5, not ported yet).  The port's host loop (``parallel/schur.py::
+(M5; the port's parallel/assembly.py calls the baseline residuals).
+The port's host loop (``parallel/schur.py::
 _block_matvec``) keeps numpy's block products, ``block_matvec_plain``:
 the library's matvec is no faster on the card's host and slower right
 after a BLAS call (PERF.md, native cell).  The library is built by

@@ -9,8 +9,9 @@ regularisation (free SD 10 m on every coordinate).
 Port of the JAX package's ``parallel/blocked_adjust.py``: BlockedNetwork
 and build_normals are its host numpy, copied; adjust_blocked keeps its
 float64 (schur_solve), float32-refined (schur_solve_refined) and nested
-(block_super) branches on `device` (the card by default).  The
-mesh-sharded branch is not ported (ROADMAP.md M7).
+(block_super) branches on `device` (the card by default), and its
+mesh-sharded branch (schur_solve_sharded; schur_solve_refined(mesh=...))
+over a process group of parallel/multihost.py.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .schur import MESH_REFUSAL, build_block_system, schur_solve, \
-    schur_solve_refined, build_nested_partition, \
+from .schur import build_block_system, schur_solve, \
+    schur_solve_refined, schur_solve_sharded, build_nested_partition, \
     schur_solve_nested_factored
 
 
@@ -147,10 +148,10 @@ def adjust_blocked(bn: BlockedNetwork, x0: np.ndarray,
 
     block_super: optional super-block assignment — switches the solve to
     the memory-lean 3-level nested Schur (required at national scale,
-    where the flat junction system no longer fits one dense solve).  A
-    mesh (multi-device) raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+    where the flat junction system no longer fits one dense solve).
+    mesh (parallel/multihost.py): the flat solves are sharded over its
+    ranks (each rank passes the same network and gets the same x); the
+    nested branch stays on `device`, as in the JAX package."""
     x = np.asarray(x0, dtype=np.float64).copy()
     free_weight = 1.0 / (free_sd * free_sd)
     history = []
@@ -172,7 +173,10 @@ def adjust_blocked(bn: BlockedNetwork, x0: np.ndarray,
                 factors=factors, device=device)
         elif dtype != np.float64:
             # f32 factorizations + f64 residual refinement
-            xi, xj = schur_solve_refined(bs, dtype=dtype, device=device)
+            xi, xj = schur_solve_refined(bs, mesh=mesh, dtype=dtype,
+                                         device=device)
+        elif mesh is not None:
+            xi, xj = schur_solve_sharded(bs, mesh)
         else:
             xi, xj = schur_solve(bs, device=device)
         # apply corrections

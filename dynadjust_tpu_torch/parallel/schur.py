@@ -33,8 +33,19 @@ torch.linalg.cholesky and torch.cholesky_solve in the pools' dtype.
 Entry points run on the card unless the caller names another device.
 Blocks are padded to uniform shapes: identity padding on the diagonal
 keeps padded factorizations defined and the padded entries inert.  The
-host-streamed nested factors are in parallel/streamed.py; the
-multi-device (mesh) routes are not ported (ROADMAP.md M7).
+host-streamed nested factors are in parallel/streamed.py.
+
+Every solve and factor class also takes a mesh (parallel/multihost.py:
+a process group, one rank per device): each rank keeps its shard of the
+block batch, padded to a multiple of the ranks with identity Nii blocks
+and zero couplings whose junction slots point at the scratch slot, and
+the junction terms — the global scale diagonal, the junction system and
+its rhs, the nested level-2 systems — are summed over the ranks with
+all_reduce (_psum).  The junction and level-2/3 solves are replicated:
+every rank computes them from the same summed inputs, scattering block
+by block (_index_add), so every rank gets the same bits; block
+results are gathered (exactly) to every rank.  The owner mask of
+the junction rhs is computed once on the full batch and sharded with it.
 """
 
 from __future__ import annotations
@@ -172,25 +183,105 @@ def _owner_indices(jmap, jmask):
     return gi, gg
 
 
+def _index_add(out, idx, vals):
+    """out (1-D) with vals (B, ...) summed at the positions idx (B, ...),
+    one block after the other.  The card's index_add_ adds the repeats
+    of a position atomically, in no fixed order; within one block a
+    position takes at most one nonzero value (the repeats are masked
+    padding, zeros, on scratch slots, and x + 0 is exact), so block by
+    block the sums come out the same on every rank that computes them.
+    (index_put_(accumulate=True) sorts instead, but adds each position's
+    repeats serially: the millions of padding zeros on a scratch slot
+    took seconds.)"""
+    for i, v in zip(idx, vals):
+        out.index_add_(0, i.reshape(-1), v.reshape(-1))
+    return out
+
+
 def _scatter_global(vals_b, jmap, nj_total):
     """(nj_total,) sum of per-block junction values into global slots."""
     out = torch.zeros(nj_total, dtype=vals_b.dtype, device=vals_b.device)
-    return out.index_add_(0, jmap.reshape(-1), vals_b.reshape(-1))
+    return _index_add(out, jmap, vals_b)
 
 
-def _scatter_junction_matrix(S_b, jmap, nj_total):
-    """(nj_total, nj_total) sum of per-block Schur pieces, with the
-    unused (scratch) diagonal slots identity-padded."""
-    nj = jmap.shape[1]
-    flat = (jmap[:, :, None] * nj_total + jmap[:, None, :]).reshape(-1)
+def _psum(x, mesh):
+    """x summed over the ranks of mesh (x itself without a mesh)."""
+    if mesh is None:
+        return x
+    from .multihost import psum
+    return psum(x, mesh)
+
+
+def _pmax(x: float, mesh) -> float:
+    """The largest of every rank's x (x itself without a mesh)."""
+    if mesh is None:
+        return x
+    import torch.distributed as dist
+    from .multihost import psum
+    t = torch.tensor([float(x)], dtype=torch.float64, device=mesh.host_device)
+    return float(psum(t, mesh, op=dist.ReduceOp.MAX).item())
+
+
+def _gather(t, mesh):
+    """A block-sharded tensor as the full batch on every rank."""
+    if mesh is None:
+        return t
+    from .multihost import gather_blocks
+    return gather_blocks(t, mesh)
+
+
+def cov_fits_device(Bp, ni, nj) -> bool:
+    """Whether the refined float64 level-1 pools of Bp blocks (Ainv and
+    Y) fit DTA_COV_DEV_BYTES (4e9) on the device; past it the covariance
+    stage keeps them on the host."""
+    return Bp * ni * (ni + nj) * 8.0 <= float(
+        os.environ.get("DTA_COV_DEV_BYTES", 4e9))
+
+
+def gather_pools(pools, mesh, on_device: bool):
+    """Block-sharded pools, each a tensor or a list of chunks (tensors,
+    or host arrays when not on_device), as the full batches on every
+    rank: on the device (on_device) or on the host, shard by shard, so
+    that the full batches never sit on the device."""
+    from .multihost import gather_blocks, gather_np
+
+    def cat(p):
+        if not isinstance(p, (list, tuple)):
+            return p
+        return torch.cat(p) if isinstance(p[0], torch.Tensor) \
+            else np.concatenate(p)
+
+    def host(p):
+        p = cat(p)
+        return p if isinstance(p, np.ndarray) else _np64(p)
+
+    if on_device:
+        return [gather_blocks(cat(p), mesh) for p in pools]
+    return [gather_np(host(p), mesh) for p in pools]
+
+
+def _pad_batch(x, Bp, fill=0.0, eye=False):
+    """A numpy block batch padded along its first axis to Bp blocks: with
+    fill, or with identity blocks (eye)."""
+    x = np.asarray(x)
+    B = x.shape[0]
+    if B == Bp:
+        return x
+    pad = np.full((Bp - B, *x.shape[1:]), fill, dtype=x.dtype)
+    if eye:
+        pad[:] = np.eye(x.shape[1], dtype=x.dtype)
+    return np.concatenate([x, pad])
+
+
+def _scatter_junction_matrix(S_b, jmap, nj_total, mesh=None):
+    """(nj_total, nj_total) sum of per-block Schur pieces (over the ranks
+    of mesh), with the unused (scratch) diagonal slots identity-padded."""
+    flat = jmap[:, :, None] * nj_total + jmap[:, None, :]
     S = torch.zeros(nj_total * nj_total, dtype=S_b.dtype, device=S_b.device)
-    S = S.index_add_(0, flat, S_b.reshape(-1)).reshape(nj_total, nj_total)
+    S = _index_add(S, flat, S_b).reshape(nj_total, nj_total)
+    S = _psum(S, mesh)
     diag = torch.diagonal(S)
     return S + torch.diag(torch.where(diag == 0.0, 1.0, 0.0).to(S.dtype))
-
-
-MESH_REFUSAL = ("not ported to dynadjust_tpu_torch yet: mesh "
-                "(multi-device sharding, ROADMAP.md M7)")
 
 
 def _device(device) -> torch.device:
@@ -239,28 +330,31 @@ def _scaled(Nii, Nij, Njj, di, dj):
             Njj * dj[:, :, None] * dj[:, None, :])
 
 
-def _unity_scale(Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total):
+def _unity_scale(Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, mesh=None):
     """Diagonal unity scaling of the full blocked system.
 
     The reference's --scale-normals-to-unity (Solve, dnaadjust.cpp:6614)
     generalised to the blocked layout: junction parameters appear in
     several blocks, so their global diagonal is reduced first to keep one
-    consistent scale factor per parameter.  Essential for float32
-    factorizations — the constraint dynamic range otherwise swamps the
-    float32 mantissa.  Returns scaled system + (di, dj_block, djg)."""
-    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total)
+    consistent scale factor per parameter (summed over the ranks of
+    mesh before the square root: scaling each shard alone would give a
+    different system).  Essential for float32 factorizations — the
+    constraint dynamic range otherwise swamps the float32 mantissa.
+    Returns scaled system + (di, dj_block, djg)."""
+    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total, mesh)
     Nii, Nij, Njj = _scaled(Nii, Nij, Njj, di, dj)
     bi = bi * di
     bj = bj * dj
     return Nii, Nij, Njj, bi, bj, di, dj, djg
 
 
-def _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total):
-    """Unity scale vectors (di, dj_block, djg) from the blocked diagonals;
-    the scaling itself happens where the pools are factored."""
+def _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total, mesh=None):
+    """Unity scale vectors (di, dj_block, djg) from the blocked diagonals
+    (the junction diagonal summed over the ranks of mesh); the scaling
+    itself happens where the pools are factored."""
     dii = torch.diagonal(Nii, dim1=-2, dim2=-1)
     djj = torch.diagonal(Njj, dim1=-2, dim2=-1) * jmask
-    dj_global = _scatter_global(djj, jmap, nj_total)
+    dj_global = _psum(_scatter_global(djj, jmap, nj_total), mesh)
     dj_global = torch.where(dj_global <= 0.0, 1.0, dj_global)
     djg = 1.0 / torch.sqrt(dj_global)          # (nj_total,) global factors
     di = 1.0 / torch.sqrt(torch.where(dii <= 0.0, 1.0, dii))
@@ -268,44 +362,46 @@ def _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total):
     return di, dj, djg
 
 
-def _junction_inverse(S_b, jmap, jmask, nj_total):
+def _junction_inverse(S_b, jmap, jmask, nj_total, mesh=None):
     """Scatter masked per-block Schur pieces into the global junction
-    system and invert it."""
+    system (summed over the ranks of mesh) and invert it."""
     from ..ops.recursive_inv import spd_inverse_rec_safe
     S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
-    S = _scatter_junction_matrix(S_b, jmap, nj_total)
+    S = _scatter_junction_matrix(S_b, jmap, nj_total, mesh)
     return spd_inverse_rec_safe(S[None])[0]
 
 
-def _scaled_normals(Nii, Nij, Njj, jmap, jmask, nj_total):
+def _scaled_normals(Nii, Nij, Njj, jmap, jmask, nj_total, mesh=None):
     """(Nii_s, Nij_s, Njj_s, di, dj, djg): the unity-scaled normals of a
     factorization and their scale vectors."""
-    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total)
+    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total, mesh)
     return (*_scaled(Nii, Nij, Njj, di, dj), di, dj, djg)
 
 
-def _schur_factor_inv(Nii, Nij, Njj, jmap, jmask, nj_total):
+def _schur_factor_inv(Nii, Nij, Njj, jmap, jmask, nj_total, mesh=None):
     """Explicit-inverse factorization (the reference's dpotrf+dpotri,
     dnamatrix_contiguous.cpp:963-1006): returns (Ainv, Y, Sinv, di, dj,
     djg, Nij_s), every later apply a matmul.  The level-1 factor is the
-    Cholesky-inverse kernel (ops/blocked_chol.block_reduce)."""
+    Cholesky-inverse kernel (ops/blocked_chol.block_reduce), on this
+    rank's shard under a mesh; the junction system is summed over the
+    ranks and inverted on every rank."""
     from ..ops.blocked_chol import block_reduce
     Nii_s, Nij_s, Njj_s, di, dj, djg = _scaled_normals(
-        Nii, Nij, Njj, jmap, jmask, nj_total)
+        Nii, Nij, Njj, jmap, jmask, nj_total, mesh)
     Ainv, Y, S_b = block_reduce(Nii_s, Nij_s, Njj_s)
     with record_function("dta.junction"):
-        Sinv = _junction_inverse(S_b, jmap, jmask, nj_total)
+        Sinv = _junction_inverse(S_b, jmap, jmask, nj_total, mesh)
     return Ainv, Y, Sinv, di, dj, djg, Nij_s
 
 
 def _schur_apply_inv_core(Ainv, Y, Sinv, di, dj, djg, Nij_s, bi, bj,
-                          jmap, jmask, nj_total):
+                          jmap, jmask, nj_total, mesh=None):
     """Solve with explicit inverses — matmuls only."""
     bi = bi * di
     bj = bj * dj
     w = torch.einsum("bij,bj->bi", Ainv, bi)
     t_b = (bj - torch.einsum("bki,bk->bi", Nij_s, w)) * jmask
-    t = _scatter_global(t_b, jmap, nj_total)
+    t = _psum(_scatter_global(t_b, jmap, nj_total), mesh)
     xj = Sinv @ t
     xj_b = xj[jmap] * jmask
     xi = (w - torch.einsum("bij,bj->bi", Y, xj_b)) * di
@@ -330,15 +426,17 @@ def _block_reduce(Nii, Nij, Njj, bi, bj, jmask):
     return S_b, t_b * jmask, L, Y, w
 
 
-def _schur_solve(Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, scale=True):
+def _schur_solve(Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, scale=True,
+                 mesh=None):
     if scale:
         Nii, Nij, Njj, bi, bj, di, dj, djg = _unity_scale(
-            Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total)
+            Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, mesh)
     S_b, t_b, L, Y, w = _block_reduce(Nii, Nij, Njj, bi, bj, jmask)
-    # the reduced junction system (scratch diagonal identity-padded)
+    # the reduced junction system (scratch diagonal identity-padded),
+    # summed over the ranks of mesh and solved on every rank
     Lj = torch.linalg.cholesky(_scatter_junction_matrix(S_b, jmap,
-                                                        nj_total))
-    t = _scatter_global(t_b, jmap, nj_total)
+                                                        nj_total, mesh))
+    t = _psum(_scatter_global(t_b, jmap, nj_total), mesh)
     xj = torch.cholesky_solve(t[:, None], Lj)[:, 0]
     xj_b = xj[jmap] * jmask                     # (B, nj) gather
     xi = w - torch.einsum("bij,bj->bi", Y, xj_b)
@@ -363,26 +461,68 @@ def schur_solve(bs: BlockSystem, scale: bool = True, device=None):
     return xi.cpu().numpy(), xj.cpu().numpy()[:bs.nj_global]
 
 
+def _check_shard(bs: BlockSystem, Bp: int, mesh):
+    """Device-assembled pools under a mesh must be this rank's shard of
+    the padded batch (DeviceAssembly(mesh=...).build_device())."""
+    if mesh is None or not isinstance(bs.Nii, torch.Tensor):
+        return
+    if bs.Nii.shape[0] != Bp // mesh.size:
+        raise ValueError(f"device pools of {bs.Nii.shape[0]} blocks are not "
+                         f"this rank's shard of {Bp} blocks over "
+                         f"{mesh.size} ranks")
+
+
+def _padded_system(bs: BlockSystem, Bp: int) -> dict:
+    """The host pools and index arrays of bs padded to Bp blocks: identity
+    Nii, zero couplings, rhs and masks, and junction slots on the scratch
+    slot nj_global (so that a scatter of a padded block lands nowhere)."""
+    return dict(Nii=_pad_batch(bs.Nii, Bp, eye=True),
+                Nij=_pad_batch(bs.Nij, Bp), Njj=_pad_batch(bs.Njj, Bp),
+                bi=_pad_batch(bs.bi, Bp), bj=_pad_batch(bs.bj, Bp),
+                jmap=_pad_batch(bs.jmap, Bp, fill=bs.nj_global),
+                jmask=_pad_batch(bs.jmask, Bp),
+                imask=_pad_batch(bs.imask, Bp))
+
+
+def schur_solve_sharded(bs: BlockSystem, mesh, scale: bool = True):
+    """Mesh-sharded schur_solve: every rank passes the same system, keeps
+    its shard of the batch (padded to a multiple of the ranks) on
+    mesh.device, sums the junction system over the ranks, solves it on
+    every rank and back-substitutes its own blocks; the inner
+    corrections are gathered.  Returns (xi (B, ni), xj (nj_global,))
+    numpy, identical on every rank."""
+    from .multihost import gather_to_host, shard_blocks
+    B = bs.Nii.shape[0]
+    p = _padded_system(bs, mesh.padded(B))
+    pools = [shard_blocks(p[k], mesh) for k in ("Nii", "Nij", "Njj", "bi",
+                                                "bj")]
+    xi, xj = _schur_solve(
+        *pools, shard_blocks(p["jmap"], mesh, torch.int64),
+        shard_blocks(p["jmask"], mesh, pools[0].dtype), bs.nj_global + 1,
+        scale, mesh)
+    return (gather_to_host(xi, mesh)[:B],
+            xj.cpu().numpy()[:bs.nj_global])
+
+
 def schur_solve_refined(bs: BlockSystem, mesh=None, refine: int = 2,
                         dtype=np.float32, device=None):
     """Mixed-precision blocked solve: the factorization-heavy Schur solve
-    runs in `dtype` (float32) on `device`; `refine` rounds of iterative
-    refinement with float64 residuals computed on the host
-    (_block_matvec) recover near-float64 accuracy (contraction ~
-    kappa_scaled * eps_f32 per round).  Each round factors afresh, as the
-    JAX package's does; schur_solve_factored factors once.  A mesh
-    (multi-device) raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+    runs in `dtype` (float32) on `device` (or sharded over mesh:
+    schur_solve_sharded); `refine` rounds of iterative refinement with
+    float64 residuals computed on the host (_block_matvec) recover
+    near-float64 accuracy (contraction ~ kappa_scaled * eps_f32 per
+    round).  Each round factors afresh, as the JAX package's does;
+    schur_solve_factored factors once."""
     low = dict(Nii=bs.Nii.astype(dtype), Nij=bs.Nij.astype(dtype),
                Njj=bs.Njj.astype(dtype), jmap=bs.jmap,
                jmask=bs.jmask.astype(dtype), imask=bs.imask.astype(dtype),
                nj_global=bs.nj_global)
 
     def solve_low(rhs_i, rhs_j_blocks):
-        xi, xj = schur_solve(BlockSystem(bi=rhs_i.astype(dtype),
-                                         bj=rhs_j_blocks.astype(dtype),
-                                         **low), device=device)
+        sys_ = BlockSystem(bi=rhs_i.astype(dtype),
+                           bj=rhs_j_blocks.astype(dtype), **low)
+        xi, xj = (schur_solve_sharded(sys_, mesh) if mesh is not None
+                  else schur_solve(sys_, device=device))
         return xi.astype(np.float64), xj.astype(np.float64)
 
     xi, xj = solve_low(bs.bi, bs.bj)
@@ -414,13 +554,13 @@ def _schur_factor(Nii, Nij, Njj, jmap, jmask, nj_total):
 
 
 def _schur_apply_core(L, Y, Lj, di, dj, djg, Nij_s, bi, bj, jmap, jmask,
-                      nj_total):
+                      nj_total, mesh=None):
     """Solve with precomputed Cholesky factors (triangular solves only)."""
     bi = bi * di
     bj = bj * dj
     w = torch.cholesky_solve(bi[..., None], L)[..., 0]
     t_b = (bj - torch.einsum("bki,bk->bi", Nij_s, w)) * jmask
-    t = _scatter_global(t_b, jmap, nj_total)
+    t = _psum(_scatter_global(t_b, jmap, nj_total), mesh)
     xj = torch.cholesky_solve(t[:, None], Lj)[:, 0]
     xj_b = xj[jmap] * jmask
     xi = (w - torch.einsum("bij,bj->bi", Y, xj_b)) * di
@@ -447,10 +587,14 @@ def _schur_factor_inv64(Nii, Nij, Njj, jmap, jmask, nj_total):
 
 def _device_solve_refined(L, Y, Lj, di, dj, djg, Nij_s, Nii64, Nij64, Njj64,
                           bi64, bj64, jmap, jmask32, jmask64, imask64,
-                          owner64, nj_total, refine, method="chol"):
+                          owner64, nj_total, refine, method="chol",
+                          mesh=None):
     """Factored apply + `refine` rounds of float64 residual refinement
     against the float64 pools, all on the device: a refined solve moves
-    only rhs- and solution-sized tensors.
+    only rhs- and solution-sized tensors.  Under a mesh the pools are
+    this rank's block shard and the junction sums run over the ranks;
+    owner64 is the full batch's owner mask, sharded (one owner slot per
+    junction parameter across all ranks).
 
     method: 'chol' — factors (L, Y, Lj) triangular (cholesky_solve
     applies); 'inv' — factors (Ainv, Y, Sinv) explicit inverses (matmul
@@ -460,18 +604,18 @@ def _device_solve_refined(L, Y, Lj, di, dj, djg, Nij_s, Nii64, Nij64, Njj64,
 
     def apply(ri64, rjb64):
         xi, xj = core(L, Y, Lj, di, dj, djg, Nij_s, ri64.to(f32),
-                      rjb64.to(f32), jmap, jmask32, nj_total)
+                      rjb64.to(f32), jmap, jmask32, nj_total, mesh)
         return xi.to(bi64.dtype), xj.to(bi64.dtype)
 
     xi, xj = apply(bi64, bj64)
-    t_glob = _scatter_global(bj64 * jmask64, jmap, nj_total)
+    t_glob = _psum(_scatter_global(bj64 * jmask64, jmap, nj_total), mesh)
     for _ in range(refine):
         xj_b = xj[jmap] * jmask64
         yi = (torch.einsum("bij,bj->bi", Nii64, xi)
               + torch.einsum("bij,bj->bi", Nij64, xj_b))
         yj_b = (torch.einsum("bij,bi->bj", Nij64, xi)
                 + torch.einsum("bij,bj->bi", Njj64, xj_b)) * jmask64
-        rj = t_glob - _scatter_global(yj_b, jmap, nj_total)
+        rj = t_glob - _psum(_scatter_global(yj_b, jmap, nj_total), mesh)
         ri = bi64 * imask64 - yi
         # one owner slot per junction param
         dxi, dxj = apply(ri, rj[jmap] * owner64)
@@ -590,13 +734,14 @@ def _newton_chunk(B, ni, nj):
 
 
 def _newton_flat_junction(S_b, jmap, jmask64, Sinv32, nj_total,
-                          max_rounds, tol):
+                          max_rounds, tol, mesh=None):
     """Scatter the refined float64 Schur pieces into the global junction
-    system and Newton-refine its inverse from the float32 one.  Returns
-    (Sinv64, err) with the measured max|I − S·Sinv|."""
+    system (summed over the ranks of mesh) and Newton-refine its inverse
+    from the float32 one.  Returns (Sinv64, err) with the measured
+    max|I − S·Sinv|."""
     from ..ops.slicegemm import mm64
     S_b = S_b * jmask64[:, :, None] * jmask64[:, None, :]
-    S = _scatter_junction_matrix(S_b, jmap, nj_total)
+    S = _scatter_junction_matrix(S_b, jmap, nj_total, mesh)
     Si, _, err = _newton_loop(Sinv32, S, mm64, max_rounds, tol)
     return Si, err
 
@@ -622,52 +767,76 @@ class DeviceSchurFactors:
     float32, and take the second mode ("inv64" refuses them).
 
     device: where the factors live — the pools' device for tensors, else
-    the card.  A mesh (multi-device) raises NotImplementedError."""
+    the card.  mesh (parallel/multihost.py; method "inv" only, as in the
+    JAX package): each rank holds its shard of the batch padded to a
+    multiple of the ranks — device-assembled pools arrive as that shard
+    (DeviceAssembly(mesh=...)), host pools are padded and sharded here,
+    with device_f64 on — on mesh.device; the junction sums run over the
+    ranks, and solve gathers the inner corrections."""
 
     def __init__(self, bs: BlockSystem, dtype=np.float32,
                  method: str = "inv", mesh=None, device_f64: bool = True,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
         if method not in ("inv", "chol", "inv64"):
             raise ValueError(f"unknown method {method!r}")
+        if mesh is not None and method != "inv":
+            raise ValueError("mesh-sharded factors require method='inv'")
         self.bs = bs
+        self.mesh = mesh
         self.nj_total = bs.nj_global + 1
         self.method = method
         self.dtype = _torch_dtype(dtype)
-        self.B_real = bs.Nii.shape[0]
+        self.B_real = len(bs.jmap)
         self.device_normals = isinstance(bs.Nii, torch.Tensor)
         if method == "inv64" and self.device_normals:
             raise ValueError("method 'inv64' factors host float64 normals; "
                              "device-assembled pools take 'inv' or 'chol'")
-        self.device_f64 = ((device_f64 or method == "inv64")
-                           and not self.device_normals)
-        if device is None and self.device_normals:
+        self.device_f64 = ((device_f64 or method == "inv64"
+                            or mesh is not None) and not self.device_normals)
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and self.device_normals:
             device = bs.Nii.device
         self.device = _device(device)
         f64 = torch.float64
-        self.jmap = _put(bs.jmap, self.device, torch.int64)
-        self.jmask32 = _put(bs.jmask, self.device, self.dtype)
-        self.jmask64 = _put(bs.jmask, self.device, f64)
-        self.imask64 = _put(bs.imask, self.device, f64)
-        self.owner64 = _put(bs.owner_mask(), self.device, f64)
+        self.Bp = mesh.padded(self.B_real) if mesh is not None \
+            else self.B_real
+        _check_shard(bs, self.Bp, mesh)
+        owner = bs.owner_mask()          # on the full batch, then sharded
+        self.jmap = self._blocks(_pad_batch(bs.jmap, self.Bp, bs.nj_global),
+                                 torch.int64)
+        self.jmask32 = self._blocks(bs.jmask, self.dtype)
+        self.jmask64 = self._blocks(bs.jmask, f64)
+        self.imask64 = self._blocks(bs.imask, f64)
+        self.owner64 = self._blocks(owner, f64)
         self._load(bs)
         self.refactor()
+
+    def _blocks(self, x, dtype, eye=False):
+        """A host block batch on the device: padded to Bp and this rank's
+        shard of it under a mesh."""
+        if self.mesh is None:
+            return _put(x, self.device, dtype)
+        from .multihost import shard_blocks
+        return shard_blocks(_pad_batch(x, self.Bp, eye=eye), self.mesh,
+                            dtype)
 
     def _load(self, bs: BlockSystem):
         """The normals pools on the device: float64 (device_f64) or the
         float32 casts."""
         self.Nii64 = self.Nij64 = self.Njj64 = self._N32 = None
         pools = (bs.Nii, bs.Nij, bs.Njj)
-        if self.device_f64:
-            self.Nii64, self.Nij64, self.Njj64 = (
-                _put(a, self.device, torch.float64) for a in pools)
-        elif self.device_normals:
+        if self.device_normals:
             self._N32 = tuple(a.to(self.device, self.dtype) for a in pools)
+            return
+        dt = torch.float64 if self.device_f64 else torch.float32
+        dt_np = np.float64 if self.device_f64 else np.float32
+        put = [self._blocks(np.asarray(a, dtype=dt_np), dt, eye=(k == 0))
+               for k, a in enumerate(pools)]
+        if self.device_f64:
+            self.Nii64, self.Nij64, self.Njj64 = put
         else:
-            self._N32 = tuple(torch.as_tensor(np.asarray(a, dtype=np.float32),
-                                              device=self.device)
-                              for a in pools)
+            self._N32 = tuple(put)
 
     def update(self, bs: BlockSystem):
         """Re-linearised normals for the same topology: swap the pools and
@@ -686,50 +855,65 @@ class DeviceSchurFactors:
                 self.Nii64, self.Nij64, self.Njj64, self.jmap,
                 self.jmask64, self.nj_total)
             return
-        factor = (_schur_factor_inv if self.method == "inv"
-                  else _schur_factor)
         N32 = self._N32 or tuple(a.to(self.dtype) for a in (
             self.Nii64, self.Nij64, self.Njj64))
-        self.factors = factor(*N32, self.jmap, self.jmask32, self.nj_total)
+        if self.method == "inv":
+            self.factors = _schur_factor_inv(*N32, self.jmap, self.jmask32,
+                                             self.nj_total, self.mesh)
+        else:
+            self.factors = _schur_factor(*N32, self.jmap, self.jmask32,
+                                         self.nj_total)
+
+    def _rhs(self, x, dtype):
+        """A rhs pool (host array of B or Bp blocks, or a device tensor
+        of this rank's blocks) as this rank's tensor."""
+        if self.mesh is not None and not isinstance(x, torch.Tensor):
+            return self._blocks(np.asarray(x, dtype=np.float64), dtype)
+        return torch.as_tensor(x, device=self.device).to(dtype)
 
     def solve_device(self, bi, bj, refine: int = 2):
         """Refined solve with rhs and results on the device: `refine`
         float64 rounds with device_f64 (none for "inv64", whose factors
         are exact), else one apply in the factor dtype (the caller drives
-        the float64 refinement)."""
+        the float64 refinement).  Under a mesh xi is this rank's shard
+        and xj is replicated."""
         method = "inv" if self.method == "inv64" else self.method
         if not self.device_f64:
-            bi = torch.as_tensor(bi, device=self.device).to(self.dtype)
-            bj = torch.as_tensor(bj, device=self.device).to(self.dtype)
             core = (_schur_apply_inv_core if method == "inv"
                     else _schur_apply_core)
-            return core(*self.factors, bi, bj, self.jmap, self.jmask32,
-                        self.nj_total)
+            return core(*self.factors, self._rhs(bi, self.dtype),
+                        self._rhs(bj, self.dtype), self.jmap, self.jmask32,
+                        self.nj_total, self.mesh)
         f64 = torch.float64
         return _device_solve_refined(
             *self.factors, self.Nii64, self.Nij64, self.Njj64,
-            torch.as_tensor(bi, dtype=f64, device=self.device),
-            torch.as_tensor(bj, dtype=f64, device=self.device), self.jmap,
+            self._rhs(bi, f64), self._rhs(bj, f64), self.jmap,
             self.jmask64 if self.method == "inv64" else self.jmask32,
             self.jmask64, self.imask64, self.owner64, self.nj_total,
-            0 if self.method == "inv64" else refine, method)
+            0 if self.method == "inv64" else refine, method, self.mesh)
 
     def solve(self, bi, bj, refine: int = 2):
         """solve_device from host rhs pools: (xi (B, ni), xj (njg,))
-        float64 numpy."""
+        float64 numpy, the same on every rank of a mesh."""
         xi, xj = self.solve_device(bi, bj, refine)
-        return _np64(xi)[:self.B_real], _np64(xj)[:self.bs.nj_global]
+        return (_np64(_gather(xi, self.mesh))[:self.B_real],
+                _np64(xj)[:self.bs.nj_global])
 
     def newton_factors(self, rounds: int = None, N64=None):
         """Float64 Newton-refined covariance factors (one-time, for the
         variance-extraction stage after convergence) against the float64
-        normals pools N64 (DeviceAssembly.build_f64()); N64=None takes the
-        resident float64 pools (device_f64), or uploads the host-assembled
-        system's own (bs).  "inv64" factors are returned as they are.
+        normals pools N64 (DeviceAssembly.build_f64(); this rank's shard
+        under a mesh); N64=None takes the resident float64 pools
+        (device_f64), or uploads the host-assembled system's own (bs).
+        "inv64" factors are returned as they are.  Under a mesh the
+        level-1 pools of the result are this rank's shard (gather them
+        with multihost.gather_blocks) and the junction inverse is
+        replicated.
 
         Rounds are residual-driven (_newton_loop; evidence stored in
-        self.cov_refine_evidence).  The level-1 refinement runs in block
-        chunks under DTA_NEWTON_CHUNK_BYTES of float64 workspace.
+        self.cov_refine_evidence, the worst over the ranks).  The level-1
+        refinement runs in block chunks under DTA_NEWTON_CHUNK_BYTES of
+        float64 workspace.
 
         The default tolerance is 1e-12, not the JAX package's 3e-9: there
         the products are mantissa-sliced on the TPU and a round costs
@@ -768,14 +952,17 @@ class DeviceSchurFactors:
                 dj[s].to(f64), Ainv[s], rounds, tol)
             ev_parts.append((k_used, err_c))
             parts.append((A_c, Y_c, S_c))
-        evid["l1_err"] = max([e for _, e in ev_parts], default=0.0)
-        evid["l1_rounds"] = max([k for k, _ in ev_parts], default=0)
+        evid["l1_err"] = _pmax(max([e for _, e in ev_parts], default=0.0),
+                               self.mesh)
+        evid["l1_rounds"] = int(_pmax(max([k for k, _ in ev_parts],
+                                          default=0), self.mesh))
         A64 = torch.cat([p[0] for p in parts])
         Y64 = torch.cat([p[1] for p in parts])
         S_b = torch.cat([p[2] for p in parts])
         Si64, j_err = _newton_flat_junction(
-            S_b, self.jmap, self.jmask64, Sinv, self.nj_total, rounds, tol)
-        evid["junction_err"] = j_err
+            S_b, self.jmap, self.jmask64, Sinv, self.nj_total, rounds, tol,
+            self.mesh)
+        evid["junction_err"] = _pmax(j_err, self.mesh)
         self.cov_refine_evidence = evid
         Nij_s64 = N64[1] * di.to(f64)[:, :, None] * dj.to(f64)[:, None, :]
         return (A64, Y64, Si64, di.to(f64), dj.to(f64), djg.to(f64),
@@ -860,10 +1047,10 @@ def schur_solve_device(bs: BlockSystem, refine: int = 2, dtype=np.float32,
 # batched Schur complements (cf. the reference's strictly sequential
 # forward/reverse sweeps, dnaadjust.cpp:2756/3461).
 #
-# Port of the resident single-device subset of the JAX package's nested
-# factors (``parallel/schur.py``: NestedPartition .. NestedSchurFactors
-# and the covariance refinement); the host-streamed factors and the mesh
-# are not part of this package.
+# Port of the JAX package's resident nested factors (``parallel/schur.py``:
+# NestedPartition .. NestedSchurFactors and the covariance refinement),
+# on one device or sharded over a mesh; the host-streamed factors are in
+# parallel/streamed.py.
 
 
 @dataclass
@@ -964,8 +1151,7 @@ def _scatter_add(shape, idx, vals):
     """zeros(shape) with vals summed at the flat positions idx."""
     out = torch.zeros(int(np.prod(shape)), dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, idx.reshape(-1), vals.reshape(-1)).reshape(
-        shape)
+    return _index_add(out, idx, vals).reshape(shape)
 
 
 def _scatter_l2_mats(S_b, sb_of_block, l2slot, SB, ni2, nj2):
@@ -1014,9 +1200,13 @@ def _nested_chunk_factor(Nii, Nij, Njj, di, dj, k, C):
     return block_reduce(*_scaled(Nii[s], Nij[s], Njj[s], di[s], dj[s]))
 
 
-def _nested_l2_assemble(S_b, jmask, sb_of_block, l2slot, SB, ni2, nj2):
+def _nested_l2_assemble(S_b, jmask, sb_of_block, l2slot, SB, ni2, nj2,
+                        mesh=None):
+    """The level-2 systems (Nii2, Nij2, Njj2) from masked per-block Schur
+    pieces, summed over the ranks of mesh."""
     S_b = S_b * jmask[:, :, None] * jmask[:, None, :]
-    return _scatter_l2_mats(S_b, sb_of_block, l2slot, SB, ni2, nj2)
+    return tuple(_psum(a, mesh) for a in _scatter_l2_mats(
+        S_b, sb_of_block, l2slot, SB, ni2, nj2))
 
 
 def _pad_l2(Nii2, i2mask):
@@ -1073,20 +1263,36 @@ def _nested_factor_stage2(Nii2, Nij2, Njj2, i2mask, j2mask, j2map,
     return A2inv, Y2, Sinv
 
 
+def _nested_factor_stage1_monolithic(Nii, Nij, Njj, jmap, jmask, sbb,
+                                     l2slot, SB, ni2, nj2, nj_total,
+                                     mesh=None):
+    """Level-1 factorization + level-2 assembly in one pass over the whole
+    (shard of the) batch: the route of pools within DTA_NESTED_FUSE_BYTES
+    and of every mesh, where each rank factors only its shard (the
+    kernel, once per rank) and the level-2 assembly is summed over the
+    ranks."""
+    from ..ops.blocked_chol import block_reduce
+    di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total, mesh)
+    Ainv, Y, S_b = block_reduce(*_scaled(Nii, Nij, Njj, di, dj))
+    Nii2, Nij2, Njj2 = _nested_l2_assemble(S_b, jmask, sbb, l2slot, SB,
+                                           ni2, nj2, mesh)
+    return Ainv, Y, Nii2, Nij2, Njj2, di, dj, djg
+
+
 def _nested_factor_full(Nii, Nij, Njj, jmap, jmask, sbb, l2slot, i2mask,
-                        j2mask, j2map, SB, ni2, nj2, nsj_total, nj_total):
+                        j2mask, j2map, SB, ni2, nj2, nsj_total, nj_total,
+                        mesh=None):
     """All three factor levels in one pass (pools within
-    DTA_NESTED_FUSE_BYTES): the level-1 and the level-2 eliminations
-    both go through block_reduce — the Cholesky-inverse kernel in
-    float32."""
+    DTA_NESTED_FUSE_BYTES, or a mesh): the level-1 and the level-2
+    eliminations both go through block_reduce — the Cholesky-inverse
+    kernel in float32.  Levels 2 and 3 are replicated on every rank."""
     from ..ops.blocked_chol import block_reduce
     with record_function("dta.level1"):
-        di, dj, djg = _nested_scale_vecs(Nii, Njj, jmap, jmask, nj_total)
-        Ainv, Y, S_b = block_reduce(*_scaled(Nii, Nij, Njj, di, dj))
+        Ainv, Y, Nii2, Nij2, Njj2, di, dj, djg = \
+            _nested_factor_stage1_monolithic(
+                Nii, Nij, Njj, jmap, jmask, sbb, l2slot, SB, ni2, nj2,
+                nj_total, mesh)
     with record_function("dta.level2"):
-        Nii2, Nij2, Njj2 = _nested_l2_assemble(S_b, jmask, sbb, l2slot,
-                                               SB, ni2, nj2)
-        del S_b
         A2inv, Y2, S2_b = block_reduce(_pad_l2(Nii2, i2mask), Nij2,
                                        torch.zeros_like(Njj2))
     with record_function("dta.level3"):
@@ -1096,14 +1302,16 @@ def _nested_factor_full(Nii, Nij, Njj, jmap, jmask, sbb, l2slot, i2mask,
 
 def _nested_apply_fwd(Ainv, Y, A2inv, Y2, Sinv, di, dj, jmask, sbb,
                       l2slot, j2map, j2mask, bi, bj, SB, ni2, nj2,
-                      nsj_total):
-    """Forward half of the apply: level-1 elimination, level-2
-    elimination, super-junction solve."""
+                      nsj_total, mesh=None):
+    """Forward half of the apply: level-1 elimination (this rank's
+    blocks), level-2 rhs summed over the ranks of mesh, level-2
+    elimination and super-junction solve (replicated)."""
     bi = bi * di
     bj = bj * dj
     w = torch.einsum("bij,bj->bi", Ainv, bi)
     t_b = (bj - torch.einsum("bkj,bk->bj", Y, bi)) * jmask
-    bi2, bj2 = _scatter_l2_rhs(t_b, sbb, l2slot, SB, ni2, nj2)
+    bi2, bj2 = (_psum(a, mesh) for a in _scatter_l2_rhs(
+        t_b, sbb, l2slot, SB, ni2, nj2))
     w2 = torch.einsum("bij,bj->bi", A2inv, bi2)
     t2_b = (bj2 - torch.einsum("bkj,bk->bj", Y2, bi2)) * j2mask
     xsj = Sinv @ _scatter_global(t2_b, j2map, nsj_total)
@@ -1145,38 +1353,67 @@ class NestedSchurFactors:
     pools.  dtype float32 (the kernel route) or float64 (library
     Cholesky; the reference's float64 check).  The factor takes one pass
     (_nested_factor_full) when the pools fit DTA_NESTED_FUSE_BYTES (6e8),
-    else the staged route (_nested_factor_stage1/2)."""
+    else the staged route (_nested_factor_stage1/2).
+
+    mesh (parallel/multihost.py): the level-1 pools are sharded over the
+    ranks (padded with identity blocks in super-block 0 whose junction
+    slots are scratch), always on the one-pass route — each rank holds
+    B/W blocks; the level-2 assembly and rhs are summed over the ranks,
+    and levels 2 and 3 are replicated on every rank.  Device-assembled
+    pools arrive as this rank's shard (DeviceAssembly(mesh=...))."""
 
     def __init__(self, bs: BlockSystem, part: NestedPartition,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, mesh=None):
         self.bs = bs
         self.part = part
+        self.mesh = mesh
         self.dtype = _torch_dtype(dtype)
-        if device is None:
+        if mesh is not None:
+            device = mesh.device
+        elif device is None:
             device = (bs.Nii.device if isinstance(bs.Nii, torch.Tensor)
                       else "cuda")
         self.device = torch.device(device)
         self.nj_total = bs.nj_global + 1
         self.nsj_total = part.nsj_global + 1
-        self.B_real = bs.Nii.shape[0]
+        self.B_real = len(bs.jmap)
+        self.Bp = mesh.padded(self.B_real) if mesh is not None \
+            else self.B_real
+        _check_shard(bs, self.Bp, mesh)
 
         def put(x, dt):
             return torch.as_tensor(np.asarray(x), dtype=dt,
                                    device=self.device)
 
         i64 = torch.int64
-        self.jmap = put(bs.jmap, i64)
-        self.jmask = put(bs.jmask, self.dtype)
-        self.sbb = put(part.sb_of_block, i64)
-        self.l2slot = put(part.l2slot, i64)
+        scratch = part.ni2 + part.nj2
+        self.jmap = self._blocks(_pad_batch(bs.jmap, self.Bp, bs.nj_global),
+                                 i64)
+        self.jmask = self._blocks(bs.jmask, self.dtype)
+        self.sbb = self._blocks(part.sb_of_block, i64)
+        self.l2slot = self._blocks(_pad_batch(part.l2slot, self.Bp,
+                                              scratch), i64)
         self.j2map = put(part.j2map, i64)
         self.j2mask = put(part.j2mask, self.dtype)
         self._i2mask_dev = put(part.i2mask, self.dtype)
         pool_bytes = 4.0 * sum(float(np.prod(a.shape))
                                for a in (bs.Nii, bs.Nij, bs.Njj))
-        self._small = pool_bytes <= float(
+        self._small = mesh is not None or pool_bytes <= float(
             os.environ.get("DTA_NESTED_FUSE_BYTES", 6e8))
         self.refactor()
+
+    def _blocks(self, x, dtype, eye=False):
+        """A host block batch (or a device pool) on the device: padded to
+        Bp and this rank's shard of it under a mesh (a device pool is
+        taken as the shard it already is)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype)
+        if self.mesh is None:
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
+        from .multihost import shard_blocks
+        return shard_blocks(_pad_batch(x, self.Bp, eye=eye), self.mesh,
+                            dtype)
 
     def refactor(self, bs: BlockSystem = None):
         """(Re-)factor from fresh normals pools (same topology), reusing
@@ -1188,14 +1425,15 @@ class NestedSchurFactors:
         # national scale) and any refined covariance state they backed
         self.factors = None
         self._cov_l1_h = self._cov_l1_dev = None
-        self._l2_host = self._l2_dev_refined = None
-        pools = [torch.as_tensor(a, device=self.device).to(self.dtype)
-                 for a in (self.bs.Nii, self.bs.Nij, self.bs.Njj)]
+        self._l2_host = self._l2_dev_refined = self._di_full = None
+        pools = [self._blocks(a, self.dtype, eye=(k == 0)) for k, a in
+                 enumerate((self.bs.Nii, self.bs.Nij, self.bs.Njj))]
         if self._small:
             self.factors = _nested_factor_full(
                 *pools, self.jmap, self.jmask, self.sbb, self.l2slot,
                 self._i2mask_dev, self.j2mask, self.j2map, part.SB,
-                part.ni2, part.nj2, self.nsj_total, self.nj_total)
+                part.ni2, part.nj2, self.nsj_total, self.nj_total,
+                self.mesh)
         else:
             Ainv, Y, Nii2, Nij2, Njj2, di, dj, djg = _nested_factor_stage1(
                 *pools, self.jmap, self.jmask, self.sbb, self.l2slot,
@@ -1209,14 +1447,15 @@ class NestedSchurFactors:
 
     def apply_device(self, bi, bj, gidx):
         """One apply of the factors on device tensors in the factor
-        dtype: (xi (B, ni) unscaled, xj (nj_total,) unscaled).  gidx:
-        _nested_gidx of the partition, on the device."""
+        dtype: (xi (B, ni) unscaled — this rank's blocks under a mesh,
+        xj (nj_total,) unscaled).  gidx: _nested_gidx of the partition,
+        on the device."""
         Ainv, Y, A2inv, Y2, Sinv, di, dj, djg = self.factors
         part = self.part
         w, xi2, xsj = _nested_apply_fwd(
             Ainv, Y, A2inv, Y2, Sinv, di, dj, self.jmask, self.sbb,
             self.l2slot, self.j2map, self.j2mask, bi, bj, part.SB,
-            part.ni2, part.nj2, self.nsj_total)
+            part.ni2, part.nj2, self.nsj_total, self.mesh)
         xj_real = torch.cat([xi2.reshape(-1), xsj])[gidx]
         xj = torch.cat([xj_real, xj_real.new_zeros(
             self.nj_total - xj_real.shape[0])])
@@ -1225,16 +1464,16 @@ class NestedSchurFactors:
 
     def solve(self, bi, bj):
         """One apply from numpy rhs pools: (xi (B, ni), xj (njg,))
-        float64 numpy."""
-        def put(x, dt=self.dtype):
-            return torch.as_tensor(np.asarray(x), dtype=dt,
-                                   device=self.device)
-
-        gidx = put(_nested_gidx(self.part, self.nsj_total), torch.int64)
-        xi, xj = self.apply_device(put(bi), put(bj), gidx)
+        float64 numpy (the same on every rank of a mesh)."""
+        gidx = torch.as_tensor(_nested_gidx(self.part, self.nsj_total),
+                               dtype=torch.int64, device=self.device)
+        xi, xj = self.apply_device(
+            self._blocks(np.asarray(bi, dtype=np.float64), self.dtype),
+            self._blocks(np.asarray(bj, dtype=np.float64), self.dtype),
+            gidx)
         njg = self.bs.nj_global
-        return (xi.cpu().double().numpy()[:self.B_real],
-                xj.cpu().double().numpy()[:njg])
+        return (_np64(_gather(xi, self.mesh))[:self.B_real],
+                _np64(xj)[:njg])
 
     # ---- covariance stage ------------------------------------------------
 
@@ -1250,7 +1489,10 @@ class NestedSchurFactors:
         else the host-assembled system's own pools (bs).  The refined
         level-1 pools stay on the device when they fit DTA_COV_DEV_BYTES
         (4e9), else they go to the host; the level-2/3 pools stay on the
-        device.
+        device.  Under a mesh each rank refines its shard and the refined
+        level-1 pools and scale vector are then gathered, so that every
+        rank holds the full covariance state (the statistics run on
+        every rank).
 
         The tolerance default is the flat path's (1e-12,
         _newton_policy), not the JAX package's resident 3e-9, for the
@@ -1268,12 +1510,13 @@ class NestedSchurFactors:
             if not isinstance(bs.Nii, np.ndarray):
                 raise ValueError("device-assembled normals: pass N64 "
                                  "(DeviceAssembly.build_f64())")
-        N64 = [torch.as_tensor(a, device=self.device) for a in N64]
+        N64 = [self._blocks(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a, torch.float64, eye=(k == 0))
+               for k, a in enumerate(N64)]
         B, ni = N64[0].shape[:2]
         nj = N64[2].shape[1]
         Ainv, Y, A2inv, Y2, Sinv, di, dj, djg = self.factors
-        keep_dev = (B * ni * (ni + nj) * 8.0 <=
-                    float(os.environ.get("DTA_COV_DEV_BYTES", 4e9)))
+        keep_dev = cov_fits_device(self.Bp, ni, nj)
         A_parts, Y_parts = [], []
 
         def store(s, A_c, Y_c):
@@ -1285,12 +1528,23 @@ class NestedSchurFactors:
         evid, l2 = _refine_nested_cov(
             self, (B, ni, nj), lambda s: [a[s] for a in N64],
             lambda s: Ainv[s], di, dj, (A2inv, Sinv), store, rounds, tol)
-        self.cov_refine_evidence, self._l2_dev_refined = evid, l2
+        self.cov_refine_evidence = evid
+        self._l2_dev_refined = tuple(l2)
+        if self.mesh is not None:
+            self._di_full = _gather(di, self.mesh)
+            A_parts, Y_parts = ([a] for a in gather_pools(
+                (A_parts, Y_parts), self.mesh, keep_dev))
         if keep_dev:
             self._cov_l1_dev = (torch.cat(A_parts), torch.cat(Y_parts))
         else:
             self._cov_l1_h = (np.concatenate(A_parts),
                               np.concatenate(Y_parts))
+
+    def stats_di(self):
+        """The level-1 scale vector of every block (gathered under a mesh
+        by newton_refine_cov), for the covariance stage."""
+        return self._di_full if self._di_full is not None \
+            else self.factors[5]
 
     def cov_l1_host(self):
         """Host view of the refined level-1 pools (downloaded on first
@@ -1307,7 +1561,7 @@ class NestedSchurFactors:
         refined = self.cov_l1_host()
         if refined is not None:
             Ah, Yh = refined
-            return Ah[b], Yh[b], _np64(di[b])
+            return Ah[b], Yh[b], _np64(self.stats_di()[b])
         return _np64(Ainv[b]), _np64(Y[b]), _np64(di[b])
 
     def junction_cov(self, gsel):
@@ -1324,11 +1578,117 @@ class NestedSchurFactors:
         return _np64(self.factors[7])
 
 
+def _schur_solve_nested(Nii, Nij, Njj, bi, bj, jmap, jmask, sbb, l2slot,
+                        j2map, j2mask, i2mask, xj_kind, xj_sb, xj_slot, SB,
+                        ni2, nj2, nsj_total, nj_total, scale=True,
+                        mesh=None):
+    """Three-level solve with the library Cholesky in the pools' dtype:
+    level 1 on this rank's blocks, the level-2 systems and rhs summed
+    over the ranks of mesh, levels 2 and 3 replicated."""
+    if scale:
+        Nii, Nij, Njj, bi, bj, di, dj, djg = _unity_scale(
+            Nii, Nij, Njj, bi, bj, jmap, jmask, nj_total, mesh)
+    # level 1: eliminate the inner stations (batched)
+    S_b, t_b, L, Y, w = _block_reduce(Nii, Nij, Njj, bi, bj, jmask)
+    # scatter into the level-2 blocked systems
+    Nii2, Nij2, Njj2 = (_psum(a, mesh) for a in _scatter_l2_mats(
+        S_b, sbb, l2slot, SB, ni2, nj2))
+    bi2, bj2 = (_psum(a, mesh) for a in _scatter_l2_rhs(
+        t_b, sbb, l2slot, SB, ni2, nj2))
+    # level 2: eliminate the inner-junction params (identity on empty
+    # inner slots keeps the batched Cholesky defined)
+    S2_b, t2_b, L2, Y2, w2 = _block_reduce(_pad_l2(Nii2, i2mask), Nij2,
+                                           Njj2, bi2, bj2, j2mask)
+    # level 3: the (small) super-junction system
+    Lj = torch.linalg.cholesky(_scatter_junction_matrix(S2_b, j2map,
+                                                        nsj_total))
+    t2 = _scatter_global(t2_b, j2map, nsj_total)
+    xsj = torch.cholesky_solve(t2[:, None], Lj)[:, 0]
+    # back-substitute level 2, then reconstruct every junction param
+    xi2 = w2 - torch.einsum("bij,bj->bi", Y2, xsj[j2map] * j2mask)
+    from_inner = xi2[xj_sb, torch.clamp(xj_slot, max=ni2 - 1)]
+    from_sj = xsj[torch.clamp(xj_slot, max=nsj_total - 1)]
+    xj_real = torch.where(xj_kind == 0, from_inner, from_sj)
+    xj = torch.cat([xj_real, xj_real.new_zeros(nj_total - len(xj_real))])
+    # back-substitute level 1
+    xi = w - torch.einsum("bij,bj->bi", Y, xj[jmap] * jmask)
+    if scale:
+        xi = xi * di
+        xj = xj * djg
+    return xi, xj
+
+
+def schur_solve_nested(bs: BlockSystem, part: NestedPartition, mesh=None,
+                       scale: bool = True, device=None):
+    """Three-level solve: batched inner elimination, batched super-block
+    junction elimination, one small super-junction solve — in the pools'
+    dtype with the library Cholesky, on `device` (the card by default),
+    or sharded over mesh (the level-2 systems summed over the ranks; the
+    padding blocks sit in super-block 0 with scratch level-2 slots).
+    Returns (xi (B, ni), xj (nj_global,)) numpy."""
+    from .multihost import shard_blocks
+    dev = mesh.device if mesh is not None else _device(device)
+    B = bs.Nii.shape[0]
+    Bp = mesh.padded(B) if mesh is not None else B
+    p = _padded_system(bs, Bp)
+    p["sbb"] = _pad_batch(part.sb_of_block, Bp)
+    p["l2slot"] = _pad_batch(part.l2slot, Bp, part.ni2 + part.nj2)
+    dt = torch.as_tensor(bs.Nii[:1]).dtype
+
+    def blocks(k, dtype=None):
+        if mesh is not None:
+            return shard_blocks(p[k], mesh, dtype)
+        return _put(p[k], dev, dtype)
+
+    i64 = torch.int64
+    xi, xj = _schur_solve_nested(
+        *(blocks(k) for k in ("Nii", "Nij", "Njj", "bi", "bj")),
+        blocks("jmap", i64), blocks("jmask", dt), blocks("sbb", i64),
+        blocks("l2slot", i64), _put(part.j2map, dev, i64),
+        _put(part.j2mask, dev, dt), _put(part.i2mask, dev, dt),
+        *(_put(a, dev, i64) for a in (part.xj_kind, part.xj_sb,
+                                       part.xj_slot)),
+        part.SB, part.ni2, part.nj2, part.nsj_global + 1,
+        bs.nj_global + 1, scale, mesh)
+    return (_gather(xi, mesh).cpu().numpy()[:B],
+            xj.cpu().numpy()[:bs.nj_global])
+
+
+def schur_solve_nested_refined(bs: BlockSystem, part: NestedPartition,
+                               mesh=None, refine: int = 2,
+                               dtype=np.float32, device=None):
+    """Mixed-precision nested solve: float32 three-level factorizations
+    (schur_solve_nested, afresh each round, as the JAX package's) plus
+    `refine` rounds of float64 host residual refinement (the contraction
+    argument of schur_solve_refined)."""
+    low = dict(Nii=bs.Nii.astype(dtype), Nij=bs.Nij.astype(dtype),
+               Njj=bs.Njj.astype(dtype), jmap=bs.jmap,
+               jmask=bs.jmask.astype(dtype), imask=bs.imask.astype(dtype),
+               nj_global=bs.nj_global)
+
+    def solve_low(rhs_i, rhs_j_blocks):
+        xi, xj = schur_solve_nested(
+            BlockSystem(bi=rhs_i.astype(dtype),
+                        bj=rhs_j_blocks.astype(dtype), **low), part, mesh,
+            device=device)
+        return xi.astype(np.float64), xj.astype(np.float64)
+
+    xi, xj = solve_low(bs.bi, bs.bj)
+    rhs_j_global = _gather_rhs_junction(bs)
+    for _ in range(refine):
+        yi, yj = _block_matvec(bs, xi, xj)
+        di_, dj_ = solve_low((bs.bi * bs.imask) - yi,
+                             _owned_rhs(bs, rhs_j_global - yj))
+        xi = xi + di_
+        xj = xj + dj_
+    return xi, xj
+
+
 def schur_solve_nested_factored(bs: BlockSystem, part: NestedPartition,
                                 refine: int = 2, dtype=torch.float32,
                                 factors=None, streamed: bool = False,
                                 max_refine: int = 12, matvec=None,
-                                device=None):
+                                device=None, mesh=None):
     """Nested mixed-precision solve with factor reuse: one three-level
     float32 factorization, then float64 host residual refinement over
     cheap applies.  Pass `factors` back in to skip re-factorizing when
@@ -1338,12 +1698,17 @@ def schur_solve_nested_factored(bs: BlockSystem, part: NestedPartition,
     them through the device per chunk (parallel/streamed.py) — for
     networks whose factors exceed device memory (the reference's staged
     .mtx mode, dnaadjust-stage.cpp:59); DTA_STREAMED_F64 (default 1)
-    refines each chunk in float64 as it is factored.
+    refines each chunk in float64 as it is factored.  Streamed factors
+    are single-device: with a mesh they raise.  mesh: the factors are
+    sharded (NestedSchurFactors(mesh=...)); the host loop runs on every
+    rank on the gathered, identical solutions.
 
     The refinement is residual-driven: rounds continue until the
     relative residual is under DTA_SOLVE_RTOL (1e-10) or stops halving,
     with `refine` rounds at least and DTA_MAX_REFINE (max_refine) at
     most.  matvec: as schur_solve_device_refined's."""
+    if streamed and mesh is not None:
+        raise ValueError("staged (host-streamed) factors are single-device")
     if factors is None:
         if streamed:
             from .streamed import StreamedNestedSchurFactors
@@ -1352,7 +1717,8 @@ def schur_solve_nested_factored(bs: BlockSystem, part: NestedPartition,
                 refine_inline=os.environ.get("DTA_STREAMED_F64",
                                              "1") != "0")
         else:
-            factors = NestedSchurFactors(bs, part, dtype, device=device)
+            factors = NestedSchurFactors(bs, part, dtype, device=device,
+                                         mesh=mesh)
     if matvec is None:
         def matvec(xi, xj):
             return _block_matvec(bs, xi, xj)
@@ -1388,8 +1754,9 @@ def _refine_nested_cov(f, dims, n64_chunk, ainv_chunk, di, dj, a2_src,
     block chunks, the level-2 systems re-assembled in float64 from the
     refined pieces, and the level-2/3 inverses refined against them.
 
-    f: the factors (its part, device, nsj_total and the device topology
-    tensors jmask, sbb, l2slot, j2map, j2mask, _i2mask_dev); dims =
+    f: the factors (its part, device, nsj_total, the device topology
+    tensors jmask, sbb, l2slot, j2map, j2mask, _i2mask_dev, and its mesh
+    if it has one: the level-2 sums then run over the ranks); dims =
     (B, ni, nj) of the level-1 pools; n64_chunk(s) -> the float64
     (Nii, Nij, Njj) of the blocks s on the device; ainv_chunk(s) -> their
     float32 inverses on the device; di, dj: the scale vectors the factors
@@ -1424,11 +1791,13 @@ def _refine_nested_cov(f, dims, n64_chunk, ainv_chunk, di, dj, a2_src,
             S_c, jmask64[s], f.sbb[s], f.l2slot[s], part.SB,
             part.ni2, part.nj2))]
         del A_c, Y_c, S_c
-    evid["l1_err"] = max(e for _, e in l1_ev)
-    evid["l1_rounds"] = max(k for k, _ in l1_ev)
+    mesh = getattr(f, "mesh", None)
+    evid["l1_err"] = _pmax(max(e for _, e in l1_ev), mesh)
+    evid["l1_rounds"] = int(_pmax(max(k for k, _ in l1_ev), mesh))
+    L2 = [_psum(a, mesh) for a in L2]
 
-    evid["l2_err"], evid["l3_err"], l2 = _refine_nested_l23(
-        f, L2, *a2_src, rounds, tol)
+    l2_err, l3_err, l2 = _refine_nested_l23(f, L2, *a2_src, rounds, tol)
+    evid["l2_err"], evid["l3_err"] = _pmax(l2_err, mesh), _pmax(l3_err, mesh)
     return evid, l2
 
 

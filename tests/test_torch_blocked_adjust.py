@@ -228,12 +228,33 @@ def test_gn_step_matches_jax_on_the_same_factors(small):
     assert float(mp) > 0.1                 # a real first correction
 
 
-def test_mesh_raises(small):
+def test_mesh_raises(small, tmp_path):
+    """mesh= on adjust_blocked, schur_solve_refined and
+    DeviceSchurFactors: the three run on a 2-rank gloo mesh (spawned
+    ranks, tests/_torch_mesh_ranks.py) and land where the meshless runs
+    do — the same iterations and 1e-10 m."""
+    import pickle
+    import _torch_mesh_ranks as ranks_mod
+    from dynadjust_tpu_torch.parallel import multihost as mh
     _, pbn, x0 = small
     pbs = PB.build_normals(pbn, x0, FREE_WEIGHT)
-    mesh = object()
-    for call in (lambda: PB.adjust_blocked(pbn, x0, mesh=mesh, device=CPU),
-                 lambda: PS.schur_solve_refined(pbs, mesh=mesh, device=CPU),
-                 lambda: PS.DeviceSchurFactors(pbs, mesh=mesh, device=CPU)):
-        with pytest.raises(NotImplementedError, match="M7"):
-            call()
+    kw = {f.name: getattr(pbn, f.name) for f in dataclasses.fields(pbn)
+          if f.init}
+    bs = {f.name: getattr(pbs, f.name) for f in dataclasses.fields(pbs)
+          if not f.name.startswith("_")}
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump({"bn": kw, "x0": x0, "bs": bs}, f)
+    mh.spawn_ranks(ranks_mod.blocked_adjust_calls, 2,
+                   f"file://{tmp_path}/store", device="cpu",
+                   args=(str(tmp_path),), timeout=300)
+    out = ranks_mod.load_ranks(tmp_path, 2)
+    x, it = out[0]["adjust_blocked"]
+    x1, it1, _, _ = PB.adjust_blocked(pbn, x0, device=CPU)
+    assert it == it1 and _dmax(x, x1) <= 1e-10
+    xi64, xj64 = PS.schur_solve(pbs, device=CPU)
+    for key in ("refined", "factors"):
+        xi, xj = out[0][key]
+        assert _dmax(xi, xi64) <= 1e-10 and _dmax(xj, xj64) <= 1e-10, key
+    for k in out[0]:
+        for a, b in zip(out[1][k], out[0][k]):
+            assert np.array_equal(a, b), k

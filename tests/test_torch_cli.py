@@ -197,11 +197,13 @@ def test_stage_files_lifecycle(runs, tmp_path, capsys):
 
 
 def test_staged_with_devices_is_refused(runs, tmp_path, capsys):
-    """--devices is multi-device (ROADMAP.md M7), alone or staged."""
+    """--devices with --staged-adjustment exits 1 with the JAX CLI's
+    words: the host-streamed factors are single-device."""
     work = tmp_path / "w"
     shutil.copytree(runs("host-phased")[0] / "torch", work)
     capsys.readouterr()
     assert torch_main(["adjust", "n", "--phased", "--tpu", *STAGE,
                        "--devices", "2", "--device", "cpu",
                        "--output-folder", str(work)]) == 1
-    assert "ROADMAP.md M7" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--devices cannot be combined with --staged-adjustment" in err

@@ -6,15 +6,18 @@ DynaML) and the SINEX and DynaML inputs run through both CLIs in-process
 on the same seeded 8 x 8 DNA files (the port with --device cpu); the
 saved networks and the written files must agree (below the lines that
 carry the run's date or the package's name; DNA measurement files with
-their angles' seconds as the port writes them).  --devices, the one
-flag whose module the port does not hold, exits non-zero naming its
-ROADMAP item, and adjust --tpu or dynadjust --tpu without --device cpu
+their angles' seconds as the port writes them).  adjust and dynadjust
+--phased --tpu --devices 2 --device cpu (two gloo ranks) print the JAX
+CLI's statistics with --devices 4; --devices with --staged-adjustment
+exits 1 with the JAX CLI's words, and adjust --tpu or dynadjust --tpu
+without --device cpu
 exits non-zero when no card is present, before writing anything, while
 the host route runs without a card.
 """
 
 import json
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -229,18 +232,25 @@ def test_sinex_and_dynaml_inputs_agree(dna, tmp_path, ext):
         assert repr(a).split("(", 1)[1] == repr(b).split("(", 1)[1]
 
 
-UNPORTED = {
-    "adjust": [(["--phased", "--tpu", "--devices", "2"], "M7")],
-    "dynadjust": [(["--phased", "--tpu", "--devices", "2"], "M7")],
+REFUSED = {
+    "adjust": [(["--phased", "--tpu", "--devices", "2",
+                 "--staged-adjustment", "--create-stage-files"],
+                "--devices cannot be combined with --staged-adjustment")],
+    "dynadjust": [(["--phased", "--tpu", "--devices", "2",
+                    "--staged-adjustment"],
+                   "--devices cannot be combined with --staged-adjustment")],
 }
-CASES = [(verb, flags, item) for verb, rows in UNPORTED.items()
-         for flags, item in rows]
+CASES = [(verb, flags, message) for verb, rows in REFUSED.items()
+         for flags, message in rows]
 
 
-@pytest.mark.parametrize("verb,flags,item", CASES,
+@pytest.mark.parametrize("verb,flags,message", CASES,
                          ids=["_".join([v, *f]) for v, f, _ in CASES])
 def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
-                                     item):
+                                     message):
+    """Flags the port refuses, with the JAX CLI's words: --devices with
+    --staged-adjustment (the host-streamed factors are single-device);
+    dynadjust stops before its first stage."""
     if verb == "adjust":
         assert _import(torch_main, tmp_path / "w", dna, []) == 0
         argv = ["adjust", "n", *flags, "--device", "cpu"]
@@ -251,9 +261,55 @@ def test_unported_flags_exit_nonzero(dna, tmp_path, capsys, verb, flags,
     capsys.readouterr()
     assert torch_main([*argv, "--output-folder", str(tmp_path / "w")]) == 1
     err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP.md {item}" in err, err
+    assert "- Error:" in err and message in err, err
     if verb == "dynadjust":
         assert not list((tmp_path / "w").iterdir())
+
+
+DEVICES_SEGMENT = ["--min-inner-stns", "10", "--max-block-stns", "20"]
+
+
+def _devices_run(main, folder, dna, verb, extra):
+    """import -> segment -> adjust --phased --tpu (or the dynadjust verb)
+    in folder: (exit code, the saved results)."""
+    if verb == "adjust":
+        assert _import(main, folder, dna, []) == 0
+        assert main(["segment", "n", *DEVICES_SEGMENT, "--output-folder",
+                     str(folder)]) == 0
+        argv = ["adjust", "n"]
+    else:
+        folder.mkdir()
+        argv = ["dynadjust", "-n", "n", str(dna / "n.stn"),
+                str(dna / "n.msr"), *DEVICES_SEGMENT]
+    rc = main([*argv, "--phased", "--tpu", *extra, "--output-folder",
+               str(folder)])
+    with open(folder / "n.results.pkl", "rb") as f:
+        return rc, pickle.load(f)
+
+
+@pytest.mark.parametrize("verb", ["adjust", "dynadjust"])
+def test_devices_route_matches_jax(dna, tmp_path, capsys, verb):
+    """--phased --tpu --devices 2 --device cpu: two gloo ranks (this
+    process and one spawned) print the JAX CLI's Chi squared and Sigma
+    zero with --devices 4 on the same files (tests/test_cli.py:180-205),
+    and save xyz within 1e-8 m of the port's single-device run."""
+    runs = {}
+    for key, main, extra in (
+            ("jax", jax_main, ["--devices", "4"]),
+            ("torch", torch_main, ["--devices", "2", "--device", "cpu"]),
+            ("single", torch_main, ["--device", "cpu"])):
+        capsys.readouterr()
+        rc, res = _devices_run(main, tmp_path / key, dna, verb, extra)
+        text = capsys.readouterr().out
+        runs[key] = (rc, res, re.findall(r"Chi squared [\d.]+|"
+                                         r"Sigma zero [\d.]+", text))
+    for key, (rc, res, stats) in runs.items():
+        assert rc == 0 and res.status == "Converged", key
+        assert len(stats) >= 2, (key, stats)
+    assert runs["torch"][2][:2] == runs["jax"][2][:2]
+    assert runs["torch"][1].iterations == runs["single"][1].iterations
+    assert np.abs(runs["torch"][1].xyz - runs["single"][1].xyz).max() \
+        <= 1e-8
 
 
 @pytest.mark.parametrize("route", [

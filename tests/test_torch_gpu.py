@@ -363,3 +363,36 @@ def test_adjust_blocked_device_on_card_matches_cpu(cuda):
     xc, itc, _, _ = adjust_blocked_device(bn, x0, device="cpu")
     assert itg == itc and mcg <= 5e-4
     assert np.abs(xg - xc).max() <= 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sb", [0, 2], ids=["two-level", "nested"])
+def test_nccl_mesh_of_one_rank_equals_meshless_run(cuda, tmp_path, sb):
+    """A world of one nccl rank on cuda:0 (a file store): the mesh route
+    of adjust_tpu_blocked — the kernel on the rank's shard, every
+    junction sum through all_reduce — lands on the meshless run: the
+    same iterations, xyz within 1e-8 m, sigma zero within 1e-9."""
+    import torch.distributed as dist
+    from dynadjust_tpu_torch.parallel import multihost as mh
+    net, seg = synthetic_mixed_network(24, 24, block_rows=12, block_cols=12)
+    ref = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                             super_blocks=sb, device=cuda)
+    mh.init_distributed(num_processes=1, process_id=0, backend="nccl",
+                        init_method=f"file://{tmp_path}/store",
+                        device="cuda:0")
+    try:
+        mh.reset_counts()
+        before = batched_cholesky_inverse.launches
+        net, seg = synthetic_mixed_network(24, 24, block_rows=12,
+                                           block_cols=12)
+        res = adjust_tpu_blocked(net, AdjustmentOptions(), seg=seg,
+                                 super_blocks=sb,
+                                 mesh=mh.global_block_mesh())
+    finally:
+        dist.destroy_process_group()
+    assert batched_cholesky_inverse.launches > before
+    assert mh.COUNTS["all_reduce"] > 0
+    assert res.status == ref.status == "Converged"
+    assert res.iterations == ref.iterations
+    assert np.abs(res.xyz - ref.xyz).max() <= 1e-8
+    assert abs(res.sigma_zero - ref.sigma_zero) <= 1e-9

@@ -5,13 +5,15 @@ of the JAX package (even a numpy-only one) imports jax through
 dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
 chip_smoke (the host modules of binary, dbid and JSONL files, simulation,
-plots, the host kernel library and the GNSS-only blocked adjustment by
-name), runs the host kernel library, a small adjustment, and a small
+plots, the host kernel library, the GNSS-only blocked adjustment and the
+multi-process layer with its dryrun by name), runs the host kernel
+library, a small adjustment, and a small
 GNSS network through the host-assembled and the device-resident
 Gauss-Newton loops on the CPU, and checks that none of the three names
 was loaded; another runs `python -m dynadjust_tpu_torch` import,
-reftran, geoid, segment, adjust --phased --tpu --device cpu, the
-dynadjust pipeline verb, import --simulate --export-bst-bms, an import of
+reftran, geoid, segment, adjust --phased --tpu --device cpu (also with
+--devices 2: this process and one spawned gloo rank), the dynadjust
+pipeline verb, import --simulate --export-bst-bms, an import of
 the binary pair, adjust --block1-phased --tpu --device cpu and metadata
 of a .bms file under the same hook; a static check reads every import
 statement.
@@ -47,7 +49,8 @@ _CHILD = textwrap.dedent("""
     for m in ("io_formats.binary", "io_formats.dbid", "io_formats.jsonl",
               "network.simulate", "output.plot", "ops.native",
               "parallel.blocked_adjust", "parallel.assembly",
-              "parallel.device_adjust"):
+              "parallel.device_adjust", "parallel.multihost",
+              "tools.multihost_dryrun"):
         assert "dynadjust_tpu_torch." + m in mods, m
     import numpy as np
     from dynadjust_tpu_torch.ops import native
@@ -150,6 +153,8 @@ _CLI_CHILD = textwrap.dedent("""
                  ["geoid", "n", "-g", "g.gsb", "--convert-stn-hts"],
                  ["segment", "n", *seg],
                  ["adjust", "n", "--phased", "--tpu", "--device", "cpu"],
+                 ["adjust", "n", "--phased", "--tpu", "--device", "cpu",
+                  "--devices", "2"],
                  ["import", "-n", "s", "n.stn", "n.msr", "--simulate"],
                  ["import", "-n", "b", "n.stn", "n.msr", "--export-bst-bms"],
                  ["import", "-n", "b", "b.bst", "b.bms"],
