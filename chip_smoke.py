@@ -93,8 +93,9 @@ script exits non-zero without printing a result):
      are 0 by design, and checked to be so); the host route launches no
      kernel.  10,000 stations through dynadjust alone (-r ITRF2014 -e
      01.01.2024 -g grid --convert-stn-hts --phased --tpu
-     --min-inner-stns 600 --max-block-stns 1200 --output-json
-     --export-snx): five done stages in dynadjust.log, PASSED, the
+     --min-inner-stns 600 --max-block-stns 1200 --output-json; no
+     --export-snx at this size, whose 2.84 GB file took 103-144 s):
+     five done stages in dynadjust.log, PASSED, the
      kernel launched, the same iterations as and xyz within 1e-6 m of
      adjust_tpu_blocked(super_blocks=4) on the network that the verb's
      first four stages save (run again with --import --reftran --geoid
@@ -141,6 +142,33 @@ device memory peak and the host RSS peak so far):
      DTA_DEVICE_SOLVE_BYTES, so the solve takes the host refinement
      loop — held likewise to the same network with DTA_DEVICE_SOLVE=1
      (the device refined solve);
+  national_mixed: tools/national_mixed.py at the JAX package's national
+     configuration (320 x 320 = 102,400 stations, 420,055 records, 400
+     tiles of 16, 16 super-blocks in a 4 x 4 grid, resident), the
+     writers (.adj, .xyz, .apu) timed each in a temporary folder; the
+     route the default rule picks is printed with its float64 design
+     pool against DTA_DEVICE_SOLVE_BYTES; held to the JAX package's
+     committed result (artifacts/national_run_v3, carried per station
+     in tools/national_102400_ref.npz): 3 iterations, Converged, PASSED,
+     sigma zero within 2e-4 of 0.9989, every station's X, Y, Z and
+     SD(e, n, up) within 1e-4 m; the last solve_rel <= 1e-9 on the
+     device refined solve, l1_err and l3_err < 1e-8; its pools are past
+     DTA_NESTED_FUSE_BYTES, so level 1 is factored in chunks of 16
+     blocks, the kernel at (16, 768) 25 times in every iteration (level
+     2 through the recursive inverse, as in the JAX package); then the
+     one-pass route (DTA_NESTED_FUSE_BYTES past the pools), the kernel
+     at (400, 768) and at level 2 (16, n2) once in every iteration,
+     held to the first run (same iterations, xyz within 1e-6 m, sigma
+     zero within 1e-9, station covariances within 1e-9 relative);
+  national_streamed: tools/national_streamed.py at the JAX package's
+     streamed configuration (448 x 448 = 200,704 stations, 600,321
+     baselines, 196 blocks of 3,072 inner parameters, 16 super-blocks,
+     DTA_STREAMED_F64 at its default), host MemTotal printed first:
+     relative residual <= 1e-10, the refinement evidence inline with
+     l1/l2/l3 errors <= 1e-10 (the artifact's tolerance), the reuse
+     apply within 1e-10 of the first solve, the kernel at (C, 3072) on
+     every chunk; each chunk's upload / compute / download ms, the bytes
+     that crossed the link and the host RSS peak printed;
   native: the host kernel library's blocked matvec against its numpy
      version (the host loop's operator) at the 10k network's
      host-assembly shapes, and its GNSS baseline residuals against
@@ -199,7 +227,6 @@ import json
 import os
 import pickle
 import re
-import resource
 import shutil
 import subprocess
 import sys
@@ -232,6 +259,7 @@ from dynadjust_tpu_torch.parallel.schur import (DeviceSchurFactors,
                                                 schur_solve,
                                                 schur_solve_device)
 from dynadjust_tpu_torch.segment import Segmentation
+from dynadjust_tpu_torch.tools import national_mixed, national_streamed
 from dynadjust_tpu_torch.utils.synthetic import (grid_segmentation,
                                                  grid_super_assignment,
                                                  synthetic_grid_network)
@@ -512,11 +540,6 @@ def _host_route_probes():
         streamed.StreamedNestedSchurFactors = orig_sf
 
 
-def _peak_rss_gb() -> float:
-    """Peak resident memory of this process so far (GB)."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-
-
 def phase_main(rows, cols, tile, label="two-level", **kw):
     """One adjustment of a mixed network through the entry point, counts
     zeroed just before and read just after: (result, launches, launches
@@ -561,7 +584,7 @@ def phase_main(rows, cols, tile, label="two-level", **kw):
     _say(f"  host residual operator: {info['matvec_calls']} calls, "
          f"{info['matvec_s']:.3f} s; device memory peak "
          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; host RSS peak "
-         f"so far {_peak_rss_gb():.2f} GB")
+         f"so far {national_mixed.peak_rss_gb():.2f} GB")
     _say(f"first iteration {log[0]['elapsed']:.3f} s, warm (last) "
          f"iteration {log[-1]['elapsed']:.3f} s; max|xyz - truth| "
          f"{err:.4f} m; chol_inv launches {launches} by (B, n) "
@@ -619,6 +642,146 @@ def phase_national(rows, cols, tile):
     _hold_to(host, dev, "national host loop vs forced device solve")
     return ({"national_host_loop": l_h, "national_device": l_d},
             {"national_host_loop": sh_h, "national_device": sh_d})
+
+
+# the JAX package's committed results of the two national-scale runs
+# (artifacts/national_run_v3/national_102400stn.json,
+# artifacts/national_streamed/streamed_200704stn.json); the per-station
+# reference of the first travels in the port (tools/national_102400_ref.npz)
+MIXED_ARTIFACT = {"stations": 102400, "records": 420055, "blocks": 400,
+                  "iterations": 3, "sigma0": 0.9989}
+STREAMED_ARTIFACT = {"stations": 200704, "baselines": 600321, "blocks": 196,
+                     "super_blocks": 16, "tol": 1e-10}
+
+
+def _in_folder(fn):
+    """fn(folder) in a temporary folder, removed afterwards."""
+    with tempfile.TemporaryDirectory() as work:
+        return fn(work)
+
+
+def _zero_counts():
+    batched_cholesky_inverse.launches = 0
+    batched_cholesky_inverse.shapes = {}
+
+
+def phase_national_mixed(work):
+    """tools/national_mixed.py at the JAX package's full size (320 x 320
+    stations, tiles of 16, 16 super-blocks, resident), counts zeroed just
+    before and read just after, held to the JAX package's committed
+    result station by station.  Its pools are past DTA_NESTED_FUSE_BYTES,
+    so the default factor route is the chunked one (as the JAX package's
+    run): level 1 in chunks of 16 blocks through the kernel, level 2 one
+    super-block at a time through the recursive inverse.  Then the same
+    run on the one-pass route (DTA_NESTED_FUSE_BYTES past the pools: the
+    kernel on all 400 blocks at once and on the 16 level-2 systems), held
+    to the first."""
+    size = national_mixed.REF_CONFIG
+    _zero_counts()
+    res, rec = national_mixed.run(*size, out=work, device="cuda",
+                                  cmdline="chip_smoke.py national_mixed")
+    launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    _say("national_mixed record: " + json.dumps(rec))
+    route = rec["route"]
+    _say(f"national_mixed route: solve {route['solve']}, design pool "
+         f"{route['pool_bytes']:.4e} B against DTA_DEVICE_SOLVE_BYTES "
+         f"{route['budget_bytes']:.0e}; writers {rec['t_write_s']} s; "
+         f"device peak {rec['peak_device_gb']:.2f} GB, host RSS peak "
+         f"{rec['peak_host_rss_gb']:.2f} GB; chol_inv launches {launches} "
+         f"by (B, n) {shapes}")
+    art = MIXED_ARTIFACT
+    _check((rec["stations"], rec["records"], rec["blocks"]) ==
+           (art["stations"], art["records"], art["blocks"]),
+           f"the artifact's network ({rec['stations']}, {rec['records']}, "
+           f"{rec['blocks']})")
+    ds = abs(res.sigma_zero - art["sigma0"])
+    _say(f"national_mixed: {res.status}, {res.iterations} iterations "
+         f"({art['iterations']}), sigma0 {res.sigma_zero:.6f} (artifact "
+         f"{art['sigma0']}, |d| {ds:.2e} <= 2e-4), {res.pass_fail}")
+    _check(res.status == "Converged" and res.pass_fail == "PASSED",
+           f"national_mixed status {res.status} {res.pass_fail}")
+    _check(res.iterations == art["iterations"], "national_mixed iterations")
+    _check(ds <= 2e-4, f"national_mixed sigma0 {res.sigma_zero}")
+    log = res.iteration_log
+    if route["solve"] == "device":
+        _check(log[-1]["solve_rel"] <= 1e-9,
+               f"last solve_rel {log[-1]['solve_rel']}")
+    ev = res.refine_evidence
+    _check(ev["l1_err"] < 1e-8 and ev["l3_err"] < 1e-8,
+           f"national_mixed refinement residuals {ev}")
+    cmp = national_mixed.compare(res.xyz, national_mixed.station_sd_enu(res),
+                                 res.truth, list(res.net.names),
+                                 national_mixed.load_reference())
+    _say("national_mixed vs the JAX artifact (X, Y, Z and SD(e, n, up) of "
+         "every station, <= 1e-4 m): " + json.dumps(cmp))
+    _check(cmp["ok"], "national_mixed stations against the JAX artifact")
+    B, ni = art["blocks"], 768
+    chunk = (16, ni)
+    _check(shapes == {chunk: B // 16 * res.iterations},
+           f"the kernel at {chunk} on every chunk of level 1 in every "
+           f"iteration ({shapes})")
+
+    os.environ["DTA_NESTED_FUSE_BYTES"] = "1e12"
+    try:
+        _zero_counts()
+        one, rec1 = national_mixed.run(*size, device="cuda")
+    finally:
+        del os.environ["DTA_NESTED_FUSE_BYTES"]
+    launches1 = batched_cholesky_inverse.launches
+    shapes1 = dict(batched_cholesky_inverse.shapes)
+    _say(f"national_mixed one-pass route: {rec1['t_adjust_s']} s, "
+         f"iterations {rec1['iter_s']} s, phases {rec1['phase_profile_s']}; "
+         f"device peak {rec1['peak_device_gb']:.2f} GB; chol_inv launches "
+         f"{launches1} by (B, n) {shapes1}")
+    _hold_to(one, res, "national_mixed one-pass vs chunked route")
+    l2 = [s for s in shapes1 if s != (B, ni)]
+    _check(shapes1.get((B, ni)) == one.iterations and len(l2) == 1
+           and l2[0][0] == 16 and shapes1[l2[0]] == one.iterations,
+           f"the kernel at {(B, ni)} and at level 2 (16, n2) once per "
+           f"iteration on the one-pass route ({shapes1})")
+    return ({"national_mixed": launches, "national_mixed_one_pass": launches1},
+            {"national_mixed": shapes, "national_mixed_one_pass": shapes1})
+
+
+def phase_national_streamed():
+    """tools/national_streamed.py at the JAX package's full size (448 x
+    448 stations, tiles of 32, super-tiles of 4, DTA_STREAMED_F64 at its
+    default), counts zeroed just before and read just after."""
+    _say(f"host MemTotal {national_streamed.mem_total_gb():.1f} GB; host "
+         f"RSS peak so far {national_mixed.peak_rss_gb():.2f} GB")
+    _check("DTA_STREAMED_F64" not in os.environ, "DTA_STREAMED_F64 unset")
+    _zero_counts()
+    solved, rec = national_streamed.run(*national_streamed.DEFAULTS,
+                                        device="cuda")
+    launches = batched_cholesky_inverse.launches
+    shapes = dict(batched_cholesky_inverse.shapes)
+    del solved
+    ms = rec.pop("chunk_ms")
+    _say("national_streamed record: " + json.dumps(rec))
+    C, B, ni = rec["chunk_blocks"], rec["blocks"], rec["ni"]
+    _say(f"national_streamed: C {C} (kernel at ({C}, {ni})), {len(ms)} "
+         f"chunks; per chunk up/compute/down ms " + ", ".join(
+             f"{c['up']:.1f}/{c['compute']:.1f}/{c['down']:.1f}"
+             for c in ms))
+    _say(f"national_streamed: chunks up {sum(c['up'] for c in ms):.1f} ms, "
+         f"compute {sum(c['compute'] for c in ms):.1f} ms, down "
+         f"{sum(c['down'] for c in ms):.1f} ms; chol_inv launches "
+         f"{launches} by (B, n) {shapes}")
+    art = STREAMED_ARTIFACT
+    _check(all(rec[k] == art[k] for k in ("stations", "baselines", "blocks",
+                                          "super_blocks")),
+           "the artifact's network")
+    _check(rec["relative_residual"] <= 1e-10,
+           f"relative residual {rec['relative_residual']}")
+    _check(rec["reuse_vs_solve_rel"] <= 1e-10,
+           f"reuse apply vs solve {rec['reuse_vs_solve_rel']}")
+    ev = rec["refine_evidence"]
+    _check(ev["inline"] and max(ev["l1_err"], ev["l2_err"], ev["l3_err"])
+           <= art["tol"], f"refinement evidence {ev} (<= {art['tol']:g})")
+    _check(len(ms) == B // C and shapes.get((C, ni)) == B // C,
+           f"the kernel at ({C}, {ni}) on every chunk ({shapes})")
+    return {"national_streamed": launches}, {"national_streamed": shapes}
 
 
 def phase_staged(rows, cols, tile, super_blocks, block_super, nested):
@@ -1368,10 +1531,13 @@ def phase_pipeline(work, sizes=((40, 40), (100, 100)), dev=()):
     files = _pipeline_inputs(d, "pb", rb, cb, grid)
     batched_cholesky_inverse.launches = 0
     batched_cholesky_inverse.shapes = {}
+    # no --export-snx here: its 2.84 GB file at 10k took 103-144 s on the
+    # card's host, time the national-scale phases need; the 1,600-station
+    # routes above write and check SINEX
     t, dyn_out = _verb(d, "dynadjust", "-n", "pb", *files, *PIPE_FRAME,
                        "-g", gsb, "--convert-stn-hts", "--phased", "--tpu",
                        "--min-inner-stns", "600", "--max-block-stns", "1200",
-                       "--output-json", "--export-snx", *dev)
+                       "--output-json", *dev)
     launches = batched_cholesky_inverse.launches
     shapes = dict(batched_cholesky_inverse.shapes)
     out["launches"]["pipeline_dynadjust"] = launches
@@ -1387,8 +1553,8 @@ def phase_pipeline(work, sizes=((40, 40), (100, 100)), dev=()):
     _say(f"pipeline b dynadjust: {t:.2f} s, stages {stages}; adjust steps "
          f"{steps}; {r.status} in {r.iterations} iterations, sigma0 "
          f"{r.sigma_zero:.3f} {r.pass_fail}; chol_inv launches {launches} "
-         f"{shapes}; .snx {os.path.getsize(d / 'pb.snx')} bytes, "
-         f".adj.jsonl {os.path.getsize(d / 'pb.adj.jsonl')} bytes")
+         f"{shapes}; .adj.jsonl {os.path.getsize(d / 'pb.adj.jsonl')} "
+         f"bytes")
     _check([k for k, _ in stages] == ["import", "reftran", "geoid",
                                       "segment", "adjust"],
            f"dynadjust.log holds five done stages: {stages}")
@@ -2146,15 +2312,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     _say(f"phase mesh: {time.perf_counter() - t:.2f} s")
 
-    # the host routes: staged nested factors, host assembly, and the
-    # national network past the device-solve budget
+    # the host routes: staged nested factors, host assembly, the 40k
+    # network past the device-solve budget; the national-scale runs
     host_launches, host_shapes = {}, {}
     host_phases = [
         ("staged", lambda: phase_staged(rows, cols, tile, super_blocks,
                                         block_super, nested_res)),
         ("host assembly", lambda: phase_host_assembly(rows, cols, tile,
                                                       flat)),
-        ("national", lambda: phase_national(200, 200, tile))]
+        ("national", lambda: phase_national(200, 200, tile)),
+        ("national_mixed", lambda: _in_folder(phase_national_mixed)),
+        ("national_streamed", phase_national_streamed)]
     for name, run in host_phases:
         t = time.perf_counter()
         la, sh = run()
@@ -2267,7 +2435,10 @@ def main() -> int:
         "cli": [{"shape": [int(b), int(n)], "paths": cli_paths[(b, n)],
                  **kern_cli[(b, n)]} for b, n in sorted(kern_cli)],
         "host_routes": [{"shape": [int(b), int(n)],
-                         "paths": host_paths[(b, n)], **kern_host[(b, n)]}
+                         "paths": host_paths[(b, n)],
+                         "launches": sum(host_shapes[p].get((b, n), 0)
+                                         for p in host_paths[(b, n)]),
+                         **kern_host[(b, n)]}
                         for b, n in sorted(kern_host)],
         "gnss": [{"shape": [int(b), int(n)],
                   "paths": [f"gnss_device_{label}"], **g[2]["kernel"]}

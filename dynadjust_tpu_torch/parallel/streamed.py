@@ -56,12 +56,14 @@ class _HostLink:
     On a CUDA device host chunks go up through page-locked staging
     buffers (one per slot, shape and dtype, reused) and come down into
     page-locked buffers; both copies are non-blocking, and a downloaded
-    buffer is valid after sync().  On the CPU the copies are plain."""
+    buffer is valid after sync().  On the CPU the copies are plain.
+    `bytes` counts what went up and down."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
         self._bufs = {}
+        self.bytes = {"up": 0, "down": 0}
 
     def pinned(self, shape, dtype):
         """An empty host tensor, page-locked on a CUDA device."""
@@ -81,6 +83,7 @@ class _HostLink:
         tensor goes up directly, anything else through staging buffer
         `slot`."""
         t = torch.as_tensor(a)
+        self.bytes["up"] += t.numel() * t.element_size()
         if not self.cuda:
             return t.to(self.device)
         if t.is_pinned():
@@ -95,6 +98,7 @@ class _HostLink:
     def down(self, t, slot=None, out=None):
         """Host copy of device tensor t into `out` (a page-locked host
         tensor) or staging buffer `slot`; read it after sync()."""
+        self.bytes["down"] += t.numel() * t.element_size()
         if out is None:
             if not self.cuda:
                 return t.cpu()

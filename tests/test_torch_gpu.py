@@ -396,3 +396,33 @@ def test_nccl_mesh_of_one_rank_equals_meshless_run(cuda, tmp_path, sb):
     assert res.iterations == ref.iterations
     assert np.abs(res.xyz - ref.xyz).max() <= 1e-8
     assert abs(res.sigma_zero - ref.sigma_zero) <= 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tool", ["mixed", "streamed"])
+def test_national_tools_on_card_match_cpu(cuda, tool):
+    """The national-scale tools at a small size on the card and on the
+    CPU: the mixed one at the bounds of test_adjustment_on_card_matches_cpu
+    (xyz 1e-7 m, sigma zero 1e-9, station covariances 1e-9 relative),
+    the streamed one within 1e-10 of the largest correction, each
+    launching the kernel on the card."""
+    from dynadjust_tpu_torch.tools import national_mixed, national_streamed
+    before = batched_cholesky_inverse.launches
+    if tool == "mixed":
+        card, rec = national_mixed.run(24, 24, 6, 4, device=cuda)
+        host, _ = national_mixed.run(24, 24, 6, 4, device="cpu")
+        assert card.iterations == host.iterations
+        assert np.abs(card.xyz - host.xyz).max() <= 1e-7
+        assert abs(card.sigma_zero - host.sigma_zero) <= 1e-9
+        assert (np.abs(card.cov_stn - host.cov_stn).max()
+                <= 1e-9 * np.abs(host.cov_stn).max())
+        assert rec["peak_device_gb"] > 0
+    else:
+        card, rec = national_streamed.run(24, 24, 6, 2, device=cuda)
+        host, _ = national_streamed.run(24, 24, 6, 2, device="cpu")
+        scale = max(np.abs(host.xi).max(), np.abs(host.xj).max())
+        assert np.abs(card.xi - host.xi).max() <= 1e-10 * scale
+        assert np.abs(card.xj - host.xj).max() <= 1e-10 * scale
+        assert rec["relative_residual"] <= 1e-10
+        assert len(rec["chunk_ms"]) == rec["blocks"] // rec["chunk_blocks"]
+    assert batched_cholesky_inverse.launches > before

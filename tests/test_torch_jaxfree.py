@@ -5,8 +5,9 @@ of the JAX package (even a numpy-only one) imports jax through
 dynadjust_tpu/__init__.py.  A subprocess with an import hook that refuses
 jax, jaxlib and dynadjust_tpu imports every module of the port and
 chip_smoke (the host modules of binary, dbid and JSONL files, simulation,
-plots, the host kernel library, the GNSS-only blocked adjustment and the
-multi-process layer with its dryrun by name), runs the host kernel
+plots, the host kernel library, the GNSS-only blocked adjustment, the
+multi-process layer with its dryrun and the national-scale tools by
+name), runs the host kernel
 library, a small adjustment, and a small
 GNSS network through the host-assembled and the device-resident
 Gauss-Newton loops on the CPU, and checks that none of the three names
@@ -50,7 +51,8 @@ _CHILD = textwrap.dedent("""
               "network.simulate", "output.plot", "ops.native",
               "parallel.blocked_adjust", "parallel.assembly",
               "parallel.device_adjust", "parallel.multihost",
-              "tools.multihost_dryrun"):
+              "tools.multihost_dryrun", "tools.national_mixed",
+              "tools.national_streamed"):
         assert "dynadjust_tpu_torch." + m in mods, m
     import numpy as np
     from dynadjust_tpu_torch.ops import native
